@@ -1,0 +1,74 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``: each test skips where ``torch.cuda.is_available()`` is
+false (the kernels are built with nvcc for sm_90a and have no CPU mode).
+On a machine with the card run
+``python -m pytest --noconftest tests/test_torch_kernels.py`` (the suite's
+conftest imports jax, which that machine need not have);
+``chip_smoke.py`` covers the same ground at the model's full shapes.
+Bounds: K1 fp32 1e-5 of scale (TF32 off), K1 bf16 1e-2, K2 bf16 < 2e-2
+(the JAX package's resblock band, tests/test_ops.py:263).
+"""
+
+import pytest
+import torch
+
+from ml_depth_pro_video_tpu_torch.core.precision import disable_tf32
+from ml_depth_pro_video_tpu_torch.ops import attention as A
+from ml_depth_pro_video_tpu_torch.ops import resblock as R
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (sm_90a)")
+    disable_tf32()
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.parametrize("shape,heads", [((3, 33, 192), 4), ((2, 65, 384), 2),
+                                         ((2, 65, 192), 2), ((1, 577, 3072), 16),
+                                         ((2, 577, 3072), 16), ((70, 577, 3072), 16),
+                                         ((2, 130, 768), 2), ((4, 70, 3 * 2 * 16), 2)])
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+def test_attention_kernel_matches_plain(cuda, shape, heads, dtype, bound):
+    qkv = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    before = A.K1.launches
+    got = A.attention_packed(qkv, heads)
+    torch.cuda.synchronize()
+    assert A.K1.launches == before + 1
+    assert got.shape == (shape[0], shape[1], shape[2] // 3) and got.dtype == dtype
+    assert _rel(got, A.attention_packed_reference(qkv, heads)) <= bound
+
+
+def test_attention_kernel_raises_on_unsupported_head_dim(cuda):
+    with pytest.raises(ValueError):
+        A.attention_packed(torch.zeros(1, 8, 3 * 2 * 24, device="cuda"), 2)
+
+
+@pytest.mark.parametrize("shape", [(1, 48, 48, 256), (2, 48, 48, 256), (2, 96, 96, 256),
+                                   (1, 20, 24, 64), (1, 9, 7, 24)])
+def test_resblock_kernel_matches_plain(cuda, shape):
+    c = shape[-1]
+    x = (torch.randn(shape, generator=cuda, device="cuda") * 0.5).bfloat16()
+    w1, w2 = (torch.randn((3, 3, c, c), generator=cuda, device="cuda") * (9 * c) ** -0.5
+              for _ in range(2))
+    b1, b2 = (torch.randn((c,), generator=cuda, device="cuda") * 0.1 for _ in range(2))
+    before = R.K2.launches
+    got = R.fused_residual_block(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert R.K2.launches == before + 1
+    assert _rel(got, R.residual_block_reference(x, w1, b1, w2, b2)) < 2e-2
+
+
+def test_resblock_kernel_raises_on_odd_channels(cuda):
+    c = 12
+    w, b = torch.zeros(3, 3, c, c, device="cuda"), torch.zeros(c, device="cuda")
+    with pytest.raises(ValueError):
+        R.fused_residual_block(torch.zeros(1, 8, 8, c, device="cuda").bfloat16(), w, b, w, b)

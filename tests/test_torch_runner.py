@@ -1,0 +1,163 @@
+"""The PyTorch port's streaming runner and CLI, on the CPU.
+
+The port's ``DepthVideoRunner(device="cpu")`` and the JAX package's
+``DepthVideoRunner`` load the SAME params (a flat npz written by the JAX
+package's ``save_params``, every leaf randomized from a numpy seed) and
+stream the same uint8 frames: a tail batch, a mixed-EXIF batch and a batch
+where every frame carries a focal length. Both run fp32; the bar is the
+JAX package's parity bar, rtol 1e-3 / atol 1e-4.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from ml_depth_pro_video_tpu.ckpt.convert import save_params
+from ml_depth_pro_video_tpu.models.depth_pro import tiny_config as j_tiny_config
+from ml_depth_pro_video_tpu.video.runner import DepthVideoRunner as JaxRunner
+from ml_depth_pro_video_tpu_torch.ckpt.params import init_depth_pro, to_numpy_tree
+from ml_depth_pro_video_tpu_torch.cli import run as cli_run
+from ml_depth_pro_video_tpu_torch.models.depth_pro import tiny_config
+from ml_depth_pro_video_tpu_torch.video.runner import DepthVideoRunner
+
+RTOL, ATOL = 1e-3, 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """Random tiny params as the JAX converter writes them; every leaf
+    redrawn from numpy (biases and LayerScale included)."""
+    rng = np.random.default_rng(11)
+    tree = to_numpy_tree(init_depth_pro(tiny_config(), torch.Generator().manual_seed(0)))
+
+    def redraw(node):
+        if isinstance(node, dict):
+            return {k: redraw(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [redraw(v) for v in node]
+        if node is None:
+            return None
+        std = float(node.std())
+        return (node.mean() + rng.standard_normal(node.shape) * (std if std > 0 else 0.1)
+                ).astype(np.float32)
+
+    path = str(tmp_path_factory.mktemp("ckpt") / "tiny.npz")
+    save_params(path, redraw(tree))
+    return path
+
+
+def _frames(n, h=60, w=84, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def test_port_runner_matches_jax_runner(checkpoint):
+    frames = _frames(5)
+    # batch 1: mixed EXIF; batch 2: no focal lengths; batch 3: tail, all given
+    items = [frames[0], (frames[1], 70.0), frames[2], frames[3], (frames[4], 55.0)]
+    port = DepthVideoRunner(cfg=dataclasses.replace(tiny_config(), checkpoint_uri=checkpoint),
+                            precision="fp32", batch_size=2, decode_workers=1, device="cpu")
+    jaxr = JaxRunner(cfg=dataclasses.replace(j_tiny_config(), checkpoint_uri=checkpoint),
+                     precision="fp32", batch_size=2, decode_workers=1)
+    got = list(port.depth_stream(items))
+    ref = list(jaxr.depth_stream(items))
+    assert len(got) == len(ref) == 5
+    for g, r, img in zip(got, ref, frames):
+        assert g["key"] is None and g["image"] is img
+        assert g["depth"].shape == (60, 84) and g["depth"].dtype == np.float32
+        np.testing.assert_allclose(g["depth"], r["depth"], rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g["focallength_px"], r["focallength_px"], rtol=RTOL,
+                                   atol=ATOL)
+    assert got[1]["focallength_px"] == 70.0 and got[4]["focallength_px"] == 55.0
+
+
+def test_port_runner_resolution_change_and_infer_one(checkpoint):
+    runner = DepthVideoRunner(cfg=dataclasses.replace(tiny_config(), checkpoint_uri=checkpoint),
+                              precision="fp32", batch_size=3, decode_workers=2, device="cpu")
+    items = _frames(2, 40, 50) + _frames(2, 30, 70, seed=1)
+    out = list(runner.depth_stream(items))
+    assert [o["depth"].shape for o in out] == [(40, 50)] * 2 + [(30, 70)] * 2
+    one = runner.infer_one(items[0])
+    np.testing.assert_allclose(one["depth"], out[0]["depth"], rtol=1e-6, atol=0)
+
+
+def test_port_runner_reads_paths_in_a_process_pool(checkpoint, tmp_path):
+    paths = []
+    for i, img in enumerate(_frames(2, 32, 48)):
+        paths.append(str(tmp_path / f"f{i}.png"))
+        Image.fromarray(img).save(paths[-1])
+    runner = DepthVideoRunner(cfg=dataclasses.replace(tiny_config(), checkpoint_uri=checkpoint),
+                              precision="fp32", batch_size=2, decode_workers=1,
+                              decode_pool="process", device="cpu")
+    out = list(runner.depth_stream(paths + [str(tmp_path / "missing.png")]))
+    assert [o["key"] for o in out] == paths  # the unreadable frame is skipped
+    assert all(np.isfinite(o["depth"]).all() for o in out)
+
+
+def test_runner_retries_device_errors_only(checkpoint, monkeypatch):
+    from ml_depth_pro_video_tpu_torch.video import runner as runner_mod
+
+    runner = DepthVideoRunner(cfg=dataclasses.replace(tiny_config(), checkpoint_uri=checkpoint),
+                              precision="fp32", batch_size=2, decode_workers=1, max_retries=1,
+                              device="cpu")
+    monkeypatch.setattr(runner_mod.time, "sleep", lambda s: None)
+    real_infer, calls = runner._infer, []
+
+    def flaky(*args):
+        calls.append(1)
+        if len(calls) == 1:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (injected)")
+        return real_infer(*args)
+
+    monkeypatch.setattr(runner, "_infer", flaky)
+    assert len(list(runner.depth_stream(_frames(2)))) == 2 and len(calls) == 2
+
+    def broken(*args):
+        calls.append(1)
+        raise ValueError("not a device error")
+
+    monkeypatch.setattr(runner, "_infer", broken)
+    calls.clear()
+    with pytest.raises(ValueError):
+        list(runner.depth_stream(_frames(2)))
+    assert len(calls) == 1  # deterministic failures are not retried
+
+
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"parallel": "latency"},
+                                    {"exported_path": "x.bin"}, {"quantize": True},
+                                    {"temporal_smooth": 0.5}, {"fetch_pack": "u16"},
+                                    {"speed": "fast"}])
+def test_unported_runner_options_raise(kwargs):
+    with pytest.raises(NotImplementedError):
+        DepthVideoRunner(cfg=tiny_config(), device="cpu", **kwargs)
+
+
+def test_runner_refuses_missing_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DepthVideoRunner(cfg=tiny_config())
+
+
+def test_cli_writes_depth_for_one_png(tmp_path, capsys):
+    img = tmp_path / "in" / "frame.png"
+    img.parent.mkdir()
+    Image.fromarray(_frames(1, 40, 56)[0]).save(img)
+    out = tmp_path / "out"
+    cli_run.main(["-i", str(img), "--model", "tiny", "--device", "cpu", "--skip-display",
+                  "-o", str(out)])
+    depth = np.load(out / "frame.npz")["depth"]
+    assert depth.shape == (40, 56) and np.isfinite(depth).all() and (depth > 0).all()
+    assert (out / "frame.jpg").exists()
+    assert "wrote" in capsys.readouterr().out
