@@ -18,7 +18,7 @@ _EXPORTS = {
     "DEFAULT_MONODEPTH_CONFIG": ("ml_depth_pro_video_tpu_torch.models.depth_pro",
                                  "DEFAULT_MONODEPTH_CONFIG"),
     "DepthVideoRunner": ("ml_depth_pro_video_tpu_torch.video.runner", "DepthVideoRunner"),
-    "load_rgb": ("ml_depth_pro_video_tpu.io.image", "load_rgb"),
+    "load_rgb": ("ml_depth_pro_video_tpu_torch.io.image", "load_rgb"),
 }
 
 

@@ -18,9 +18,16 @@ from pathlib import Path
 
 import numpy as np
 
-from ml_depth_pro_video_tpu.cli.run import IMAGE_EXTS, colorize
-
 LOGGER = logging.getLogger(__name__)
+IMAGE_EXTS = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".heic", ".webp"}
+
+
+def colorize(values: np.ndarray, cmap: str = "turbo") -> np.ndarray:
+    """Normalized values -> uint8 RGB via a matplotlib colormap."""
+    import matplotlib
+
+    cm = matplotlib.colormaps[cmap]
+    return (cm(values)[..., :3] * 255).astype(np.uint8)
 
 
 def run(args) -> None:
@@ -87,7 +94,7 @@ def run(args) -> None:
 
 
 def main(argv=None) -> None:
-    from ..models.depth_pro import MODEL_PRESETS
+    from ..models.depth_pro import MODEL_PRESETS, SPEED_PRESETS
 
     ap = argparse.ArgumentParser(description="Depth Pro inference (PyTorch/CUDA port)")
     ap.add_argument("-i", "--image-path", dest="image_path", required=True,
@@ -97,8 +104,8 @@ def main(argv=None) -> None:
                     help="bfloat16 compute (default)")
     ap.add_argument("--fp32", dest="half", action="store_false")
     ap.add_argument("--batch-size", type=int, default=1)
-    ap.add_argument("--speed", choices=["exact"], default="exact",
-                    help="only the exact tier is ported (token merging is not)")
+    ap.add_argument("--speed", choices=sorted(SPEED_PRESETS), default="exact",
+                    help="exact, or an approximate ToMe token-merging tier (balanced, fast)")
     ap.add_argument("--model", choices=list(MODEL_PRESETS), default="large",
                     help="model family member")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")

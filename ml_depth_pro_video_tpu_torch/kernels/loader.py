@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` file of this package
-into one shared library with a plain C interface, which is loaded with
+(one ``nvcc`` per source, all started together) and links the objects into
+one shared library with a plain C interface, which is loaded with
 ``ctypes`` (no PyTorch headers, so the build takes seconds, not minutes).
 The library lands in ``build/torch_kernels/<hash>/`` under the repository
 root (an installed copy, outside a checkout, uses
@@ -21,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
@@ -39,14 +41,17 @@ def _build_root() -> Path:
 
 BUILD_ROOT = _build_root()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 LIBRARY_NAME = "libdepth_pro_kernels.so"
 
 _p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signatures of the exported entry points (pointers and the stream as
 # c_void_p, or ctypes would pass them as 32-bit ints)
+_ATTN_ARGS = (_i, _i, _i, _i, _i, _f, _i, _p)  # B, S, H, hd, is_bf16, scale, device, stream
 _SIGNATURES = {
-    "attention_packed_forward": ((_p, _p, _i, _i, _i, _i, _i, _f, _i, _p), _i),
+    "attention_packed_forward": ((_p, _p) + _ATTN_ARGS, _i),
+    "attention_packed_bias_forward": ((_p, _p, _p) + _ATTN_ARGS, _i),
+    "attention_bhsd_forward": ((_p, _p, _p, _p) + _ATTN_ARGS, _i),
     "resblock_forward": ((_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p), _i),
     "resblock_smem_bytes": ((_i,), _ll),
 }
@@ -89,20 +94,37 @@ def library_path() -> Path:
     return BUILD_ROOT / digest.hexdigest()[:16] / LIBRARY_NAME
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; wait for every one; raise if any failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise KernelBuildError("\n".join(failed))
+
+
+def _build(lib_path: Path) -> None:
+    nvcc = _nvcc()
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=lib_path.parent) as tmp_dir:
+        objs = [os.path.join(tmp_dir, f"{src.stem}.o") for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for obj, src in zip(objs, sources())])
+        tmp = os.path.join(tmp_dir, LIBRARY_NAME)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     lib_path = library_path()
     if not lib_path.exists():
-        nvcc = _nvcc()
-        lib_path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f".{LIBRARY_NAME}.{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise KernelBuildError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                                   f"{res.stdout}\n{res.stderr}")
-        os.replace(tmp, lib_path)  # atomic: a concurrent build never sees half a file
+        _build(lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)

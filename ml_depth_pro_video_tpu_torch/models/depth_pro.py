@@ -63,6 +63,25 @@ class DepthProConfig:
 DEFAULT_MONODEPTH_CONFIG = DepthProConfig()
 MODEL_PRESETS = ("large", "base", "small", "tiny")
 
+# --speed presets (runner, CLI): the non-exact tiers trade a bounded output
+# deviation for throughput through ToMe token merging with proportional
+# attention in the 35-patch ViT (models/vit.py; kernel K3 on CUDA)
+SPEED_PRESETS = {"exact": 0.0, "balanced": 0.25, "fast": 0.5}
+
+
+def apply_speed(cfg: DepthProConfig, speed: str) -> DepthProConfig:
+    """Return ``cfg`` with the named speed preset's merge ratio set."""
+    if speed not in SPEED_PRESETS:
+        raise ValueError(f"speed must be one of {sorted(SPEED_PRESETS)}, got {speed!r}")
+    if SPEED_PRESETS[speed] > 0:
+        LOGGER.warning(
+            "--speed %s is an APPROXIMATE tier (token merge ratio %.2f): "
+            "deviation bounds in docs/PERFORMANCE.md are from a "
+            "structured-feature proxy model; sign-off vs the real "
+            "checkpoint pending (use --speed exact for reference parity)",
+            speed, SPEED_PRESETS[speed])
+    return dataclasses.replace(cfg, token_merge_ratio=SPEED_PRESETS[speed])
+
 
 def tiny_config(use_fov_head: bool = True) -> DepthProConfig:
     """Miniature config for CPU tests: same topology, 512px, 2-block ViT."""
@@ -165,9 +184,11 @@ def encoder_apply(params: dict, x: torch.Tensor, cfg: DepthProConfig,
                          split_patches(x1, p, overlap=0.5),    # 9B
                          x2], dim=0)                            # 35B
 
+    # only the 35-patch ViT merges tokens; the image and FOV ViTs stay exact
     tokens, (h0, h1) = vit_apply(params["patch_vit"], pyramid, vit_cfg, precision,
                                  capture_blocks=cfg.hook_block_ids,
-                                 merge_ratio=cfg.token_merge_ratio)
+                                 merge_ratio=cfg.token_merge_ratio,
+                                 merge_block=cfg.token_merge_block)
     n0, n1 = 25 * b, 9 * b
     latent0 = merge_patches(tokens_to_grid(h0[:n0], g), b, pad0)
     latent1 = merge_patches(tokens_to_grid(h1[:n0], g), b, pad0)

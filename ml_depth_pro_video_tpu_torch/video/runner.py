@@ -8,9 +8,11 @@ are dispatched ahead: each batch's device-to-host copy is queued into
 pinned host memory right behind its own compute, so fetching batch N
 overlaps the compute of batch N+1.
 
-Options of the JAX runner that this port does not implement yet (meshes,
-latency parallelism, AOT export, int8, temporal smoothing, u16 fetch
-packing, the ToMe speed tiers) raise ``NotImplementedError`` when set.
+``speed`` picks the exact path or a ToMe speed tier (``balanced``,
+``fast``: ``models/depth_pro.py::apply_speed``). Options of the JAX runner
+that this port does not implement yet (meshes, latency parallelism, AOT
+export, int8, temporal smoothing, u16 fetch packing) raise
+``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -27,34 +29,18 @@ import numpy as np
 import torch
 
 from ..core.precision import disable_tf32, resolve_device, resolve_precision
+from ..io.image import load_stream_item
 from ..models.depth_pro import (
     DEFAULT_MONODEPTH_CONFIG,
     DepthProConfig,
     DepthProModel,
+    apply_speed,
     build_params,
     infer_fn,
 )
 
 LOGGER = logging.getLogger(__name__)
 _STREAM_ERROR = "__stream_error__"
-
-
-def load_frame(item, downscale_factor: float = 1.0):
-    """item: path | (path, f_px) | ndarray | (ndarray, f_px) -> (key, uint8
-    HxWx3 image, f_px or None). ndarray items at scale 1 are handled here
-    without PIL; everything else goes through the JAX package's jax-free
-    ``io.image.load_stream_item`` (which needs Pillow)."""
-    img = _image_part(item)
-    if isinstance(img, np.ndarray) and downscale_factor == 1.0:
-        f_px = item[1] if isinstance(item, tuple) else None
-        if img.dtype != np.uint8:
-            if np.issubdtype(img.dtype, np.floating) and img.size and img.max() <= 1.0:
-                img = img * 255.0  # [0, 1] floats
-            img = np.clip(img, 0, 255).astype(np.uint8)
-        return None, img, f_px
-    from ml_depth_pro_video_tpu.io.image import load_stream_item
-
-    return load_stream_item(item, downscale_factor)
 
 
 def _image_part(item):
@@ -106,11 +92,13 @@ class DepthVideoRunner:
         unported = {"mesh": mesh is not None, "parallel='latency'": parallel != "dp",
                     "exported_path": exported_path is not None, "quantize": bool(quantize),
                     "temporal_smooth": float(temporal_smooth) > 0.0,
-                    "fetch_pack='u16'": fetch_pack != "none", f"speed={speed!r}": speed != "exact"}
+                    "fetch_pack='u16'": fetch_pack != "none"}
         for name, is_set in unported.items():
             if is_set:
                 raise NotImplementedError(f"DepthVideoRunner({name}) is not ported to the "
                                           "PyTorch runner yet")
+        if speed != "exact":
+            cfg = apply_speed(cfg, speed)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
@@ -171,7 +159,7 @@ class DepthVideoRunner:
                 delay = min(delay * 2, 60.0)
 
     def _load_one(self, item):
-        return load_frame(item, self.downscale_factor)
+        return load_stream_item(item, self.downscale_factor)
 
     def depth_stream(self, items: Iterable) -> Iterator[dict]:
         """Yield {"key", "depth", "focallength_px", "image"} per frame, in
@@ -204,7 +192,7 @@ class DepthVideoRunner:
                     import multiprocessing
                     from concurrent.futures import ProcessPoolExecutor
 
-                    # spawn: children import only the jax-free io.image
+                    # spawn: children import only io.image (numpy, Pillow)
                     pex = ProcessPoolExecutor(self.decode_workers,
                                               mp_context=multiprocessing.get_context("spawn"))
                 with ThreadPoolExecutor(self.decode_workers) as ex, \
@@ -221,8 +209,6 @@ class DepthVideoRunner:
                                 break
                             if pex is not None and isinstance(_image_part(item),
                                                               (str, os.PathLike)):
-                                from ml_depth_pro_video_tpu.io.image import load_stream_item
-
                                 fut = pex.submit(load_stream_item, item, self.downscale_factor)
                             else:
                                 fut = ex.submit(self._load_one, item)

@@ -2,11 +2,12 @@
 
 Run from the repository root on a machine with an NVIDIA H100::
 
-    python3 scripts/torch_slice_profile.py
+    python3 scripts/torch_slice_profile.py [--speed exact balanced fast]
 
-It builds one ``large``-preset ``DepthVideoRunner`` (ViT-L, 1536^2, random
-weights from seed 0, bf16) and feeds it 1080x1920 uint8 frames held in
-memory (decode is not timed):
+For each speed tier asked for (default: exact) it builds one
+``large``-preset ``DepthVideoRunner`` (ViT-L, 1536^2, random weights from
+seed 0, bf16) and feeds it 1080x1920 uint8 frames held in memory (decode is
+not timed):
 
 1. for batch sizes 1, 2, 4 and 8, frames/s over a window of 96 frames after
    a warm-up stream, on the host clock, ending in ``torch.cuda.synchronize()``;
@@ -24,6 +25,7 @@ unprofiled run; the script prints both rates so they can be compared.
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import subprocess
@@ -38,7 +40,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from ml_depth_pro_video_tpu_torch.models.depth_pro import model_preset  # noqa: E402
+from ml_depth_pro_video_tpu_torch.models.depth_pro import (  # noqa: E402
+    SPEED_PRESETS,
+    model_preset,
+)
 from ml_depth_pro_video_tpu_torch.video.runner import DepthVideoRunner  # noqa: E402
 
 SWEEP_BATCHES = (1, 2, 4, 8)
@@ -49,6 +54,8 @@ TOP_KERNELS = 25
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # first match wins: cuDNN conv kernels contain "gemm" too, so convs come first
 GROUPS = [
+    ("K3 biased attention (csrc/attention_packed.cu)",
+     r"attention_(bf16|fp32)_kernel<\d+, true>"),
     ("K1 attention (csrc/attention_packed.cu)", r"attention_(bf16|fp32)_kernel"),
     ("K2 resblock (csrc/resblock.cu)", r"resblock_kernel"),
     ("conv (cuDNN)", r"conv|fprop|dgrad|wgrad|cudnn"),
@@ -56,6 +63,7 @@ GROUPS = [
     ("layer norm", r"layer_norm|LayerNorm"),
     ("GELU", r"gelu|GeluCUDA"),
     ("copy / cast", r"copy|Copy|Memcpy|memcpy|Memset|memset|cat_|CatArray"),
+    ("sort / scatter / gather (ToMe merge and others)", r"[Ss]ort|scatter|gather|index"),
     ("reduce", r"reduce|Reduce"),
     ("other elementwise", r"elementwise|vectorized|unrolled"),
 ]
@@ -115,14 +123,9 @@ def breakdown(trace_path: Path, n_batches: int) -> dict:
             "by_name": sorted(by_name.items(), key=lambda kv: -kv[1])}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA device")
-    where = card()
-    print(f"card: {where}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-
+def profile_speed(speed: str, where: str) -> None:
     runner = DepthVideoRunner(cfg=model_preset("large"), precision="bf16", batch_size=1,
-                              rng_seed=0, device="cuda")
+                              rng_seed=0, speed=speed, device="cuda")
     rng = np.random.default_rng(0)
     pool = [rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8) for _ in range(8)]
 
@@ -135,7 +138,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         fps = stream_fps(runner, frames(SWEEP_FRAMES))
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"[sweep] batch {b}: {fps} frames/s over {SWEEP_FRAMES} frames, "
+        print(f"[sweep] speed {speed}, batch {b}: {fps} frames/s over {SWEEP_FRAMES} frames, "
               f"peak allocated {peak:.2f} GiB on {where}", flush=True)
 
     b = runner.batch_size = PROFILE_BATCH
@@ -149,7 +152,7 @@ def main() -> int:
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
         rep = breakdown(trace, n_batches)
-    print(f"[profile] batch {b}, {PROFILE_FRAMES} frames ({n_batches} batches): "
+    print(f"[profile] speed {speed}, batch {b}, {PROFILE_FRAMES} frames ({n_batches} batches): "
           f"{plain_fps} frames/s unprofiled, {prof_fps} frames/s under the profiler, on {where}")
     print(f"[profile] window without the first and last batch: {rep['window_ms']:.3f} ms; "
           f"device busy {rep['busy_ms']:.3f} ms; idle share {rep['idle_share']:.4f}; "
@@ -160,6 +163,18 @@ def main() -> int:
     for name, us in rep["by_name"][:TOP_KERNELS]:
         print(f"[kernel] {us / 1e3:10.3f} ms {us / 1e3 / rep['summed_ms']:7.2%}  "
               f"{group_of(name)}: {name[:110]}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--speed", nargs="+", choices=sorted(SPEED_PRESETS), default=["exact"])
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    where = card()
+    print(f"card: {where}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    for speed in args.speed:
+        profile_speed(speed, where)
     return 0
 
 

@@ -6,8 +6,9 @@ On a machine with the card run
 ``python -m pytest --noconftest tests/test_torch_kernels.py`` (the suite's
 conftest imports jax, which that machine need not have);
 ``chip_smoke.py`` covers the same ground at the model's full shapes.
-Bounds: K1 fp32 1e-5 of scale (TF32 off), K1 bf16 1e-2, K2 bf16 < 2e-2
-(the JAX package's resblock band, tests/test_ops.py:263).
+Bounds: the attention kernels (K1, K3, K4) fp32 1e-5 of scale (TF32 off),
+bf16 1e-2; K2 bf16 < 2e-2 (the JAX package's resblock band,
+tests/test_ops.py:263).
 """
 
 import pytest
@@ -50,6 +51,80 @@ def test_attention_kernel_matches_plain(cuda, shape, heads, dtype, bound):
 def test_attention_kernel_raises_on_unsupported_head_dim(cuda):
     with pytest.raises(ValueError):
         A.attention_packed(torch.zeros(1, 8, 3 * 2 * 24, device="cuda"), 2)
+
+
+def _log_sizes(shape, generator):
+    """A ToMe bias: log of integer token counts >= 1."""
+    counts = torch.randint(1, 5, shape, generator=generator, device="cuda")
+    return counts.float().log()
+
+
+# the speed tiers' shapes at batch 1 and 2 (balanced: 433 tokens, fast: 289), then ragged ones
+@pytest.mark.parametrize("shape,heads", [((35, 433, 3072), 16), ((70, 433, 3072), 16),
+                                         ((70, 289, 3072), 16), ((3, 33, 192), 4),
+                                         ((2, 65, 192), 2), ((2, 130, 768), 2)])
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+def test_attention_bias_kernel_matches_plain(cuda, shape, heads, dtype, bound):
+    qkv = torch.randn(shape, generator=cuda, device="cuda").to(dtype)
+    bias = _log_sizes(shape[:2], cuda)
+    k1, k3 = A.K1.launches, A.K3.launches
+    got = A.attention_packed(qkv, heads, bias)
+    torch.cuda.synchronize()
+    assert (A.K1.launches, A.K3.launches) == (k1, k3 + 1)
+    assert got.shape == (shape[0], shape[1], shape[2] // 3) and got.dtype == dtype
+    assert _rel(got, A.attention_packed_reference(qkv, heads, bias)) <= bound
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+def test_attention_bias_kernel_takes_minus_inf_keys(cuda, dtype, bound):
+    """-inf bias on a whole first key tile, on scattered keys, and on every
+    key of one batch item: no NaN; that item's rows are zeros (the plain
+    version gives NaN there), the other items match the plain version."""
+    b, s, heads = 3, 150, 2
+    qkv = torch.randn((b, s, 3 * 2 * 64), generator=cuda, device="cuda").to(dtype)
+    bias = _log_sizes((b, s), cuda)
+    bias[0, :64] = -float("inf")
+    bias[1, ::3] = -float("inf")
+    bias[2] = -float("inf")
+    got = A.attention_packed(qkv, heads, bias)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got[2] == 0).all()
+    ref = A.attention_packed_reference(qkv, heads, bias)
+    assert _rel(got[:2], ref[:2]) <= bound
+
+
+def test_attention_without_bias_launches_k1_only(cuda):
+    qkv = torch.randn((2, 65, 384), generator=cuda, device="cuda").bfloat16()
+    k1, k3 = A.K1.launches, A.K3.launches
+    A.attention_packed(qkv, 2)
+    assert (A.K1.launches, A.K3.launches) == (k1 + 1, k3)
+
+
+@pytest.mark.parametrize("shape", [(70, 16, 577, 64), (1, 16, 577, 64), (3, 4, 33, 32),
+                                   (2, 2, 65, 16), (1, 2, 130, 128)])
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+def test_unpacked_attention_kernel_matches_plain(cuda, shape, dtype, bound):
+    q, k, v = (torch.randn(shape, generator=cuda, device="cuda").to(dtype) for _ in range(3))
+    before = A.K4.launches
+    got = A.multi_head_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert A.K4.launches == before + 1
+    assert got.shape == shape and got.dtype == dtype
+    assert _rel(got, A.attention_reference(q, k, v)) <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_unpacked_kernel_equals_packed_kernel(cuda, dtype):
+    """K4 is K1's kernel body read through other strides: on the same q, k, v
+    the two give the same bits."""
+    b, s, heads, hd = 4, 97, 4, 64
+    qkv = torch.randn((b, s, 3 * heads * hd), generator=cuda, device="cuda").to(dtype)
+    q, k, v = (t.contiguous() for t in A._split_packed(qkv, heads))
+    packed = A.attention_packed(qkv, heads)
+    unpacked = A.multi_head_attention(q, k, v).transpose(1, 2).reshape(b, s, heads * hd)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, unpacked)
 
 
 @pytest.mark.parametrize("shape", [(1, 48, 48, 256), (2, 48, 48, 256), (2, 96, 96, 256),

@@ -94,8 +94,6 @@ def test_vit_apply_with_captures_matches_jax(params):
     assert len(t_caps) == len(j_caps) == 2
     for t, j in zip(t_caps, j_caps):
         _close(t, j)
-    with pytest.raises(NotImplementedError):
-        TV.vit_apply(vit.tree(), torch.from_numpy(x), TCFG.vit, merge_ratio=0.25)
 
 
 def test_forward_matches_jax(params):

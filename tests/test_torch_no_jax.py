@@ -1,6 +1,7 @@
-"""The PyTorch port never imports jax: every module of the package and
-everything ``chip_smoke.py`` imports load in a fresh interpreter with
-``jax`` absent from ``sys.modules`` afterwards."""
+"""The PyTorch port never imports jax or the JAX package: every module of the
+package and everything ``chip_smoke.py`` imports load in a fresh interpreter
+with neither ``jax`` nor ``ml_depth_pro_video_tpu`` in ``sys.modules``
+afterwards, and no source line imports either."""
 
 import pkgutil
 import subprocess
@@ -10,6 +11,7 @@ from pathlib import Path
 import ml_depth_pro_video_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "ml_depth_pro_video_tpu")  # as a top-level package name
 
 
 def _port_modules():
@@ -17,11 +19,15 @@ def _port_modules():
                                                         "ml_depth_pro_video_tpu_torch."))
 
 
+def _forbidden(module: str) -> bool:
+    return module.split(".")[0] in FORBIDDEN
+
+
 def test_port_covers_the_slice_modules():
     mods = set(_port_modules())
     for name in ("core.precision", "ops.norm", "ops.conv", "ops.resize", "ops.attention",
                  "ops.resblock", "kernels.loader", "models.vit", "models.depth_pro",
-                 "ckpt.params", "video.runner", "cli.run"):
+                 "ckpt.params", "video.runner", "cli.run", "io.image"):
         assert f"ml_depth_pro_video_tpu_torch.{name}" in mods
 
 
@@ -30,8 +36,10 @@ def test_port_and_chip_smoke_import_without_jax():
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
         f"for m in {_port_modules()!r}: importlib.import_module(m)\n"
+        "import ml_depth_pro_video_tpu_torch as port\n"
+        "port.load_rgb\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -40,11 +48,30 @@ def test_port_and_chip_smoke_import_without_jax():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+def _imported_modules(line: str) -> list[str]:
+    """The modules an ``import`` or ``from`` line names (empty for others)."""
+    words = line.strip().split(None, 1)
+    if len(words) < 2 or words[0] not in ("from", "import"):
+        return []
+    if words[0] == "from":
+        return [words[1].split()[0]]
+    return [part.split()[0] for part in words[1].split(",") if part.strip()]
+
+
+def test_imported_modules_parser():
+    assert _imported_modules("import jax.numpy as jnp") == ["jax.numpy"]
+    assert _imported_modules("from ml_depth_pro_video_tpu.io import image") == [
+        "ml_depth_pro_video_tpu.io"]
+    assert _imported_modules("import os, jax") == ["os", "jax"]
+    assert not any(map(_forbidden, _imported_modules("from ..io.image import load_rgb")))
+    assert not _forbidden("ml_depth_pro_video_tpu_torch.ops")
+    assert _forbidden("ml_depth_pro_video_tpu.ops") and _forbidden("jax")
+
+
 def test_no_jax_import_in_port_sources():
     files = sorted((ROOT / "ml_depth_pro_video_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_slice_profile.py"]
+        ROOT / "chip_smoke.py", *sorted((ROOT / "scripts").glob("torch_*.py"))]
     for path in files:
         for line in path.read_text().splitlines():
-            words = line.strip().split()
-            if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                assert not words[1].startswith("jax"), f"{path}: {line}"
+            bad = [m for m in _imported_modules(line) if _forbidden(m)]
+            assert not bad, f"{path}: {line}"

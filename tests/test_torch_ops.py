@@ -8,6 +8,10 @@ wrappers take the plain versions for CPU tensors, which is what these
 tests hold against JAX (tests/test_torch_kernels.py covers the card).
 """
 
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -159,6 +163,105 @@ def test_attention_kernel_wrapper_rejects_what_k1_does_not_take(shape, heads, dt
         tattn._attention_packed_cuda(torch.zeros(shape, dtype=dtype), heads)
 
 
+def _log_sizes(rng, shape):
+    """A ToMe key bias: log of integer token counts >= 1."""
+    return np.log(rng.integers(1, 5, shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("block_heads", [None, 2])  # full width and head-grouped
+@pytest.mark.parametrize("shape,heads", [((2, 33, 192), 4), ((2, 33, 3 * 4 * 64), 4)])
+def test_attention_bias_plain_matches_jax_kernel_and_xla(shape, heads, block_heads):
+    rng = _rng(9)
+    qkv = rng.standard_normal(shape).astype(np.float32)
+    bias = _log_sizes(rng, shape[:2])
+    got = tattn.attention_packed_reference(torch.from_numpy(qkv), heads, torch.from_numpy(bias))
+    pallas = jattn.flash_attention_packed_bias(jnp.asarray(qkv), jnp.asarray(bias), heads,
+                                               interpret=True, block_heads=block_heads)
+    xla = jattn.xla_attention_packed(jnp.asarray(qkv), heads, key_bias=jnp.asarray(bias))
+    _close(got, pallas, 1e-3, 1e-4)
+    _close(got, xla, 1e-3, 1e-4)
+
+
+def test_attention_bias_wrapper_gradients_match_jax_vjp():
+    """The K3 wrapper's backward (plain math on the CPU) against jax.vjp of
+    xla_attention_packed, for qkv and for the bias."""
+    import jax
+
+    rng = _rng(10)
+    qkv = rng.standard_normal((2, 17, 3 * 2 * 16)).astype(np.float32)
+    bias = _log_sizes(rng, (2, 17))
+    g = rng.standard_normal((2, 17, 2 * 16)).astype(np.float32)
+    t_qkv = torch.from_numpy(qkv).requires_grad_(True)
+    t_bias = torch.from_numpy(bias).requires_grad_(True)
+    tattn.attention_packed(t_qkv, 2, t_bias).backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda q, kb: jattn.xla_attention_packed(q, 2, kb), jnp.asarray(qkv),
+                     jnp.asarray(bias))
+    j_qkv, j_bias = vjp(jnp.asarray(g))
+    _close(t_qkv.grad, j_qkv, 1e-3, 1e-4)
+    _close(t_bias.grad, j_bias, 1e-3, 1e-4)
+
+
+def test_attention_bias_wrapper_on_cpu_is_plain_and_differentiable():
+    qkv = torch.randn(2, 9, 3 * 32, dtype=torch.float64, requires_grad=True)
+    bias = torch.log(torch.randint(1, 4, (2, 9)).double()).requires_grad_(True)
+    launches = (tattn.K1.launches, tattn.K3.launches)
+    out = tattn.attention_packed(qkv, 2, bias)
+    torch.testing.assert_close(out, tattn.attention_packed_reference(qkv, 2, bias))
+    assert (tattn.K1.launches, tattn.K3.launches) == launches
+    assert torch.autograd.gradcheck(lambda t, b: tattn.attention_packed(t, 2, b), (qkv, bias))
+
+
+@pytest.mark.parametrize("bias_shape,bias_device", [((2, 8), "cpu"), ((1, 9), "cpu"),
+                                                    ((2, 9), "meta")])
+def test_attention_kernel_wrapper_rejects_a_bias_k3_does_not_take(bias_shape, bias_device):
+    with pytest.raises(ValueError, match="key_bias"):
+        tattn._attention_packed_cuda(torch.zeros(2, 9, 3 * 32), 2,
+                                     torch.zeros(bias_shape, device=bias_device))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 9, 16), (1, 4, 33, 64)])
+def test_unpacked_attention_matches_jax(shape):
+    rng = _rng(11)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(3))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    ref = jattn._xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    _close(tattn.attention_reference(tq, tk, tv), ref, 1e-3, 1e-4)
+    launches = tattn.K4.launches
+    _close(tattn.multi_head_attention(tq, tk, tv), ref, 1e-3, 1e-4)
+    assert tattn.K4.launches == launches  # no kernel on a CPU tensor
+    bias = _log_sizes(rng, (shape[0], shape[2]))
+    _close(tattn.attention_reference(tq, tk, tv, torch.from_numpy(bias)),
+           jattn._xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                jnp.asarray(bias)), 1e-3, 1e-4)
+
+
+def test_multi_head_attention_gradients_match_jax_vjp():
+    import jax
+
+    rng = _rng(12)
+    q, k, v, g = (rng.standard_normal((1, 2, 7, 16)).astype(np.float32) for _ in range(4))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    tattn.multi_head_attention(*ts).backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(jattn._xla_attention, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for t, j in zip(ts, vjp(jnp.asarray(g))):
+        _close(t.grad, j, 1e-3, 1e-4)
+    q64 = [torch.randn(1, 2, 5, 16, dtype=torch.float64, requires_grad=True) for _ in range(3)]
+    assert torch.autograd.gradcheck(tattn.multi_head_attention, q64)
+
+
+@pytest.mark.parametrize("shapes,dtypes", [
+    (((1, 2, 4, 24),) * 3, (torch.float32,) * 3),                   # head dim 24
+    (((1, 2, 4, 32),) * 3, (torch.float16,) * 3),                   # fp16
+    (((1, 2, 4, 32), (1, 2, 5, 32), (1, 2, 4, 32)), (torch.float32,) * 3),  # shapes differ
+    (((1, 2, 4, 32),) * 3, (torch.float32, torch.bfloat16, torch.float32)),  # dtypes differ
+    (((2, 4, 32),) * 3, (torch.float32,) * 3),                      # not 4-d
+])
+def test_unpacked_kernel_wrapper_rejects_what_k4_does_not_take(shapes, dtypes):
+    q, k, v = (torch.zeros(s, dtype=d) for s, d in zip(shapes, dtypes))
+    with pytest.raises(ValueError):
+        tattn._attention_bhsd_cuda(q, k, v)
+
+
 def _resblock_inputs(shape, seed, dtype):
     rng = _rng(seed)
     c = shape[-1]
@@ -243,6 +346,62 @@ def test_kernel_counts_only_successful_launches(monkeypatch):
     with pytest.raises(loader.KernelLaunchError, match="cudaErrorLaunchOutOfResources"):
         k.launch()
     assert k.launches == 2
+
+
+_FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+with open({log!r}, "a") as f:
+    f.write(" ".join(args) + "\\n")
+if any("{bad}" in a for a in args):
+    sys.stderr.write("error: refused\\n")
+    sys.exit(2)
+open(args[args.index("-o") + 1], "w").write("built")
+"""
+
+
+def _fake_nvcc(tmp_path, monkeypatch, bad="no-such-source"):
+    nvcc, log = tmp_path / "nvcc", tmp_path / "nvcc.log"
+    nvcc.write_text(_FAKE_NVCC.format(python=sys.executable, log=str(log), bad=bad))
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    (tmp_path / "cuda" / "bin").mkdir(parents=True)
+    (tmp_path / "cuda" / "bin" / "nvcc").symlink_to(nvcc)
+    return log
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    log = _fake_nvcc(tmp_path, monkeypatch)
+    lib = tmp_path / "out" / loader.LIBRARY_NAME
+    loader._build(lib)
+    assert lib.read_text() == "built"
+    calls = log.read_text().splitlines()
+    compiles = [c for c in calls if " -c " in f" {c} "]
+    assert len(compiles) == len(loader.sources()) == 2
+    assert sorted(c.split()[-1] for c in compiles) == sorted(map(str, loader.sources()))
+    assert len(calls) == 3 and "-shared" in calls[-1].split()
+    assert sorted(p.name for p in lib.parent.iterdir()) == [loader.LIBRARY_NAME]
+
+
+def test_failed_build_raises_and_leaves_no_library(monkeypatch, tmp_path):
+    _fake_nvcc(tmp_path, monkeypatch, bad="resblock.cu")
+    lib = tmp_path / "out" / loader.LIBRARY_NAME
+    with pytest.raises(loader.KernelBuildError, match="refused"):
+        loader._build(lib)
+    assert not lib.exists() and list(lib.parent.iterdir()) == []
+
+
+def test_build_time_script_times_both_ways(monkeypatch, tmp_path):
+    log = _fake_nvcc(tmp_path, monkeypatch)
+    path = Path(__file__).resolve().parents[1] / "scripts" / "torch_build_time.py"
+    spec = importlib.util.spec_from_file_location("torch_build_time", path)
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    times = script.time_builds(("parallel", "serial"))
+    assert [len(times["parallel"]), len(times["serial"])] == [1, 1]
+    serial = log.read_text().splitlines()[-1].split()
+    assert "-shared" in serial and "-c" not in serial
+    assert serial[-len(loader.sources()):] == list(map(str, loader.sources()))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -24,6 +24,12 @@ def test_busy_in_is_the_clipped_union(intervals, lo, hi, busy):
 
 @pytest.mark.parametrize("name,group", [
     ("attention_bf16_kernel", "K1 attention (csrc/attention_packed.cu)"),
+    ("void (anonymous namespace)::attention_bf16_kernel<64, false>((anonymous namespace)::Args)",
+     "K1 attention (csrc/attention_packed.cu)"),
+    ("void (anonymous namespace)::attention_bf16_kernel<64, true>((anonymous namespace)::Args)",
+     "K3 biased attention (csrc/attention_packed.cu)"),
+    ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<float>",
+     "sort / scatter / gather (ToMe merge and others)"),
     ("resblock_kernel", "K2 resblock (csrc/resblock.cu)"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32", "conv (cuDNN)"),
     ("nvjet_tst_256x136_64x4_2x1_v_bz_coopA_bias_NNT", "GEMM (cuBLAS)"),
@@ -54,3 +60,9 @@ def test_breakdown_drops_first_and_last_batch(tmp_path):
     assert rep["summed_ms"] == pytest.approx(0.16)  # 40 + 100 + 20 us
     assert dict(rep["by_name"]) == pytest.approx(
         {"attention_bf16_kernel": 40.0, "resblock_kernel": 100.0, "Memcpy DtoH": 20.0})
+
+
+def test_speed_option_takes_the_presets_only(capsys):
+    with pytest.raises(SystemExit):
+        prof.main(["--speed", "fastest"])
+    assert "invalid choice" in capsys.readouterr().err

@@ -62,6 +62,35 @@ def _frames(n, h=60, w=84, seed=0):
     return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for _ in range(n)]
 
 
+def test_port_image_io_matches_jax(tmp_path):
+    """The port's own io.image against the JAX package's: EXIF rotation and
+    focal length, a grayscale PNG, stream items with a given f_px, float
+    arrays and a downscale."""
+    from ml_depth_pro_video_tpu.io import image as j_image
+    from ml_depth_pro_video_tpu_torch.io import image as t_image
+
+    rgb = _frames(1, 30, 40, seed=3)[0]
+    exif = Image.Exif()
+    exif[0x0112] = 6                  # orientation: rotate
+    exif[0x8769] = {0xA405: 35}       # FocalLengthIn35mmFilm
+    jpg, png = tmp_path / "r.jpg", tmp_path / "g.png"
+    Image.fromarray(rgb).save(jpg, exif=exif)
+    Image.fromarray(rgb[..., 0]).save(png)
+    for path in (jpg, png):
+        t_img, _, t_f = t_image.load_rgb(path)
+        j_img, _, j_f = j_image.load_rgb(path)
+        np.testing.assert_array_equal(t_img, j_img)
+        assert t_f == j_f
+    assert t_image.load_rgb(jpg)[0].shape == (40, 30, 3) and t_image.load_rgb(jpg)[2] > 0
+    floats = rgb.astype(np.float32) / 255.0
+    for item, scale in [(str(jpg), 1.0), ((str(jpg), 500.0), 0.5), (floats, 1.0),
+                        ((floats, 80.0), 0.5)]:
+        t_key, t_img, t_f = t_image.load_stream_item(item, scale)
+        j_key, j_img, j_f = j_image.load_stream_item(item, scale)
+        assert t_key == j_key and t_f == j_f
+        np.testing.assert_array_equal(t_img, j_img)
+
+
 def test_port_runner_matches_jax_runner(checkpoint):
     frames = _frames(5)
     # batch 1: mixed EXIF; batch 2: no focal lengths; batch 3: tail, all given
@@ -136,11 +165,48 @@ def test_runner_retries_device_errors_only(checkpoint, monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"parallel": "latency"},
                                     {"exported_path": "x.bin"}, {"quantize": True},
-                                    {"temporal_smooth": 0.5}, {"fetch_pack": "u16"},
-                                    {"speed": "fast"}])
+                                    {"temporal_smooth": 0.5}, {"fetch_pack": "u16"}])
 def test_unported_runner_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         DepthVideoRunner(cfg=tiny_config(), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("speed", ["balanced", "fast"])
+def test_port_runner_speed_tier_matches_jax_runner(checkpoint, speed):
+    """The runner applies the speed preset as the JAX runner does. The merge
+    point is moved to after block 1 so that the 2-block tiny ViT merges."""
+    from ml_depth_pro_video_tpu_torch.models import vit as TV
+
+    merges = []
+    real = TV.compute_token_merge
+
+    def recording(tokens, ratio):
+        merges.append(tokens.shape)
+        return real(tokens, ratio)
+
+    cfg = dataclasses.replace(tiny_config(), checkpoint_uri=checkpoint, token_merge_block=1)
+    jcfg = dataclasses.replace(j_tiny_config(), checkpoint_uri=checkpoint, token_merge_block=1)
+    port = DepthVideoRunner(cfg=cfg, precision="fp32", batch_size=2, decode_workers=1,
+                            speed=speed, device="cpu")
+    jaxr = JaxRunner(cfg=jcfg, precision="fp32", batch_size=2, decode_workers=1, speed=speed)
+    assert port.cfg.token_merge_ratio == jaxr.cfg.token_merge_ratio > 0
+    items = _frames(3, seed=2)
+    TV.compute_token_merge = recording
+    try:
+        got = list(port.depth_stream(items))
+    finally:
+        TV.compute_token_merge = real
+    ref = list(jaxr.depth_stream(items))
+    assert merges == [(70, 65, 64)] * 2  # the patch ViT of each batch of 2 frames
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g["depth"], r["depth"], rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(g["focallength_px"], r["focallength_px"], rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_unknown_speed_raises():
+    with pytest.raises(ValueError, match="speed must be one of"):
+        DepthVideoRunner(cfg=tiny_config(), device="cpu", speed="fastest")
 
 
 def test_runner_refuses_missing_cuda():
@@ -161,3 +227,14 @@ def test_cli_writes_depth_for_one_png(tmp_path, capsys):
     assert depth.shape == (40, 56) and np.isfinite(depth).all() and (depth > 0).all()
     assert (out / "frame.jpg").exists()
     assert "wrote" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("speed", ["exact", "balanced", "fast"])
+def test_cli_takes_every_speed(tmp_path, capsys, speed):
+    img = tmp_path / "frame.png"
+    Image.fromarray(_frames(1, 36, 44)[0]).save(img)
+    cli_run.main(["-i", str(img), "--model", "tiny", "--device", "cpu", "--skip-display",
+                  "--speed", speed])
+    assert "frame.png: depth [" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        cli_run.main(["-i", str(img), "--model", "tiny", "--device", "cpu", "--speed", "fastest"])
