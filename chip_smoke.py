@@ -18,7 +18,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    computes the same function where there is one (``library_ms``:
    ``scaled_dot_product_attention`` on the same views, a yardstick the port
    never calls) and beside its bound (the larger of its bytes over 3.35 TB/s
-   and its operations over the card's peak for their type);
+   and its operations over the card's peak for their type); the attention
+   kernels' entries carry the fp32 (parity mode) reading at the same shape
+   under ``fp32``, and K1's the bf16 one at the image ViT's (2, 577, 3072)
+   under ``small_shape``;
 4. slice: a ``DepthVideoRunner`` at the ``large`` preset (ViT-L, 1536^2,
    random weights, bf16, batch 2) runs 1080x1920 uint8 frames through
    ``depth_stream``; outputs are checked and the kernels' launch counts
@@ -134,19 +137,25 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, iters: int = 20) -> float:
-    """Median wall time of one call on the card, from CUDA events."""
+def median_ms(fn, iters: int = 20, short_ms: float = 0.2, short_iters: int = 100) -> float:
+    """Median wall time of one call on the card, from CUDA events: of
+    ``iters`` calls, or of ``short_iters`` where those read under
+    ``short_ms`` (a ~50 us kernel is noisy under a median of 20)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
+
+    def once() -> float:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        return start.elapsed_time(end)
+
+    times = [once() for _ in range(iters)]
+    if statistics.median(times) < short_ms:
+        times = [once() for _ in range(short_iters)]
     return statistics.median(times)
 
 
@@ -195,6 +204,16 @@ def report_entry(err, rel, times, shape, dtype) -> dict:
             "dtype": {torch.bfloat16: "bf16", torch.float32: "fp32"}[dtype]}
 
 
+def add_to_report(report: dict, err, rel, times, shape, dtype) -> None:
+    """An attention kernel's entry at its batch-2 shape: the bf16 reading at
+    the top level, the fp32 (parity mode) one at the same shape under ``fp32``."""
+    entry = report_entry(err, rel, times, shape, dtype)
+    if dtype == torch.bfloat16:
+        report.update(entry)
+    else:
+        report["fp32"] = entry
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -239,8 +258,11 @@ def kernels_k1(g) -> dict:
                                       attention_flops(b, heads, s, d3 // 3 // heads),
                                       nbytes(qkv, got), dtype)
                 line += suffix
-                if dtype == torch.bfloat16 and shape[0] == 35 * BATCH:
-                    report = report_entry(err, rel, times, shape, dtype)
+                if shape[0] == 35 * BATCH:
+                    add_to_report(report, err, rel, times, shape, dtype)
+                elif dtype == torch.bfloat16 and shape[0] == BATCH:
+                    # the image and FOV ViTs' shape: 48 launches per forward
+                    report["small_shape"] = report_entry(err, rel, times, shape, dtype)
             _check(f"K1 {dtype} {shape}", rel, ATTN_BOUNDS[dtype], line)
     # K4 is K1's kernel body read through other strides: the same bits
     qkv = torch.randn((35 * BATCH, 577, 3072), generator=g, device="cuda").bfloat16()
@@ -276,8 +298,8 @@ def kernels_k3(g) -> dict:
                                       attention_flops(b, heads, s, d3 // 3 // heads),
                                       nbytes(qkv, bias, got), dtype)
                 line += suffix
-                if dtype == torch.bfloat16 and shape[:2] == (35 * BATCH, 433):
-                    report = report_entry(err, rel, times, shape, dtype)
+                if shape[:2] == (35 * BATCH, 433):
+                    add_to_report(report, err, rel, times, shape, dtype)
             _check(f"K3 {dtype} {shape}", rel, ATTN_BOUNDS[dtype], line)
     # -inf keys: a whole first key tile, scattered keys, and every key of one item
     b, s, heads = 3, 150, 2
@@ -317,8 +339,8 @@ def kernels_k4(g) -> dict:
                                       lambda: attention_reference(q, k, v), sdpa_on(q, k, v),
                                       attention_flops(*shape), nbytes(q, k, v, got), dtype)
                 line += suffix
-                if dtype == torch.bfloat16 and shape[0] == 35 * BATCH:
-                    report = report_entry(err, rel, times, shape, dtype)
+                if shape[0] == 35 * BATCH:
+                    add_to_report(report, err, rel, times, shape, dtype)
             _check(f"K4 {dtype} {shape}", rel, ATTN_BOUNDS[dtype], line)
     return report
 

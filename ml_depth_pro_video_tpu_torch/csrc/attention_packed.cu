@@ -23,19 +23,26 @@
 // bound it -- but only while the (B*H, S, S) scores stay out of device
 // memory. The plain version writes and re-reads them in fp32.
 //
-// Design: one block per (64-query tile, head, batch item), 4 warps, each
-// warp owning 16 query rows; the block loops over 64-key tiles with an
-// fp32 online softmax, so any S works and no score leaves the SM. Ragged
-// query and key tiles are zero-filled on load and masked in the softmax.
-// The running max is guarded so that a key tile (or a whole row) whose
-// scores are all -inf -- a -inf bias -- gives 0, not exp(-inf - -inf) = NaN;
-// a row with no finite score at all writes zeros.
-// - bf16 (the production path): FlashAttention-2 style on the tensor cores.
-//   mma.sync m16n8k16 (bf16 in, fp32 accumulate) with the scores, the
-//   probabilities and the output accumulator kept in registers (the score
-//   accumulator fragment is re-packed as the A operand of P.V); K, V (and
-//   the bias slice) tiles are double-buffered in shared memory with
-//   cp.async and read with ldmatrix (V transposed on the fly).
+// Design: one block per (query tile, head, batch item), 4 warps; the block
+// loops over 64-key tiles with an fp32 online softmax, so any S works and no
+// score leaves the SM. Ragged query and key tiles are zero-filled on load
+// and masked in the softmax. The running max is guarded so that a key tile
+// (or a whole row) whose scores are all -inf -- a -inf bias -- gives 0, not
+// exp(-inf - -inf) = NaN; a row with no finite score at all writes zeros.
+// - bf16 (the production path): the FlashAttention-2 tiling on the tensor
+//   cores. mma.sync m16n8k16 (bf16 in, fp32 accumulate) with the scores,
+//   the probabilities and the output accumulator kept in registers (the
+//   score accumulator fragment is re-packed as the A operand of P.V); K and
+//   V tiles ride a cp.async ring in shared memory and are read with
+//   ldmatrix (V transposed on the fly). Shared-memory reads, not the tensor
+//   cores, cap a warp that owns 16 query rows (each K and V fragment read
+//   serves one mma pair), so at hd = 64 a warp owns 32 rows (128 queries
+//   per block) and uses each fragment twice; a grid too small to fill the
+//   card with such blocks keeps 64-query blocks (chosen from the shape
+//   alone, so K4 and K1 run the same instance on the same data). S = 577 is
+//   9 * 64 + 1: warps whose rows all lie past S skip their compute, a ragged
+//   rest of at most 64 rows takes a 64-query block, and only the last key
+//   tile pays for the key mask.
 // - fp32 (parity mode): the same tiling with plain fp32 FMAs in shared
 //   memory, so it keeps full fp32 accuracy (no TF32).
 
@@ -45,14 +52,40 @@
 #include <math.h>
 #include <stdint.h>
 
+// Build-time switches for measuring one design choice at a time
+// (scripts/torch_attention_variants.py); the defaults are what ships.
+#ifndef ATTN_STAGES
+#define ATTN_STAGES 2  // depth of the bf16 K/V cp.async ring
+#endif
+#ifndef ATTN_QTILES
+#define ATTN_QTILES 0  // 16-row m-tiles per warp at hd = 64: 0 = by grid size, 1 or 2 = forced
+#endif
+#ifndef ATTN_SKIP_PAST_S
+#define ATTN_SKIP_PAST_S 1  // warps whose rows all lie past S skip their compute
+#endif
+#ifndef ATTN_SKIP_KEY_FRAGMENTS
+#define ATTN_SKIP_KEY_FRAGMENTS 0  // the last key tile skips its 16-key fragments past S
+#endif
+#ifndef ATTN_SPLIT_TAIL
+#define ATTN_SPLIT_TAIL 1  // mask keys >= S in the last key tile only
+#endif
+#ifndef ATTN_NARROW_TAIL
+#define ATTN_NARROW_TAIL 1  // a ragged rest of <= 64 rows takes a 64-query block, not a 128-query one
+#endif
+#ifndef ATTN_SUM_ROUNDED
+#define ATTN_SUM_ROUNDED 0  // row sums of the bf16-rounded probabilities, not the fp32 ones
+#endif
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;   // queries per block
-constexpr int BK = 64;   // keys per tile
-constexpr int NWARPS = BQ / 16;
+constexpr int BQ = 64;   // queries per block (fp32 body; bf16: 64 per m-tile of its warps)
+constexpr int BK = 64;    // keys per tile (bf16)
+constexpr int BK32 = 64;  // keys per tile (fp32)
+constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
+constexpr int STAGES = ATTN_STAGES;
 constexpr float LOG2E = 1.4426950408889634f;
 
 constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
@@ -101,11 +134,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                "l"(src), "r"(valid ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
@@ -135,6 +163,13 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// 2^x on the special-function unit; 2^-inf = +0
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -144,196 +179,296 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
 }
 
-template <int HD, bool BIAS>
+__device__ __forceinline__ float quad_max(float v) {  // over the 4 lanes that share a row
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// MT: 16-row m-tiles per warp, so a block holds 64 * MT queries
+template <int HD, bool BIAS, int MT>
 struct Bf16Geometry {
+  static constexpr int ROWS = 64 * MT;
   static constexpr int LD = HD + 8;  // padded rows: conflict-free ldmatrix
-  static constexpr size_t kTiles = sizeof(bf16) * (size_t)(BQ + 4 * BK) * LD;  // Q, 2x(K, V)
-  static constexpr size_t kBytes = kTiles + (BIAS ? sizeof(float) * 2 * BK : 0);
+  static constexpr size_t kTiles =
+      sizeof(bf16) * (size_t)(ROWS + 2 * STAGES * BK) * LD;  // Q, STAGES x (K, V)
+  static constexpr size_t kBytes = kTiles + (BIAS ? sizeof(float) * STAGES * BK : 0);
 };
 
-// rows [row0, row0+64) of one head's q, k or v -> shared memory
-template <int HD>
+// rows [row0, row0+ROWS) of one head's q, k or v -> shared memory, zero past S
+template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restrict__ src,
                                                 int row0, int S, long long row_stride) {
-  constexpr int LD = Bf16Geometry<HD, false>::LD;
+  constexpr int LD = HD + 8;
   constexpr int CPR = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < 64 * CPR; i += NTHREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 8;
+  const int c = (threadIdx.x % CPR) * 8;
+#pragma unroll
+  for (int r = threadIdx.x / CPR; r < ROWS; r += NTHREADS / CPR) {
     const bool valid = row0 + r < S;
     cp_async16(dst + r * LD + c, src + (valid ? row0 + r : 0) * row_stride + c, valid);
   }
 }
 
-// the bias of keys [k0, k0+64) -> shared memory (zero past S; masked anyway)
-__device__ __forceinline__ void load_bias_async(float* dst, const float* __restrict__ row,
-                                                int k0, int S) {
-  if (threadIdx.x < BK) {
-    const bool valid = k0 + (int)threadIdx.x < S;
-    cp_async4(dst + threadIdx.x, row + (valid ? k0 + threadIdx.x : 0), valid);
+// the bias of key k0 + threadIdx.x, in the base-2 units of the softmax (0 past S; masked anyway)
+__device__ __forceinline__ float load_bias(const float* __restrict__ row, int k0, int S) {
+  const int key = k0 + (int)threadIdx.x;
+  return threadIdx.x < BK && key < S ? __ldg(row + key) * LOG2E : 0.f;
+}
+
+// One 64-key tile for one warp: S = Q K^T, the online softmax, O += P V.
+// TAIL: the tile holds only `kv` < 64 valid keys, so the mask applies; V rows
+// past S are zero in shared memory, so their zero probabilities add zeros.
+// Skipping the tile's 16-key fragments past S as well (ATTN_SKIP_KEY_FRAGMENTS)
+// measured slower than computing them: the branches cut the unrolled tile
+// into blocks across which loads and mma no longer overlap.
+template <int HD, bool BIAS, int MT, bool TAIL>
+__device__ __forceinline__ void attend_tile(const bf16* Kt, const bf16* Vt, const float* Bt,
+                                            int kv, float sl2, int lane,
+                                            const uint32_t (&qa)[MT][HD / 16][4],
+                                            float (&o)[MT][HD / 8][4], float (&m)[MT][2],
+                                            float (&l)[MT][2]) {
+  constexpr int LD = HD + 8;
+  const int tig = lane & 3;  // fragment column pair
+
+  // raw scores of this warp's 16 * MT rows x 64 keys (8 n-tiles of 8 keys);
+  // each K fragment read serves every m-tile
+  float s[MT][BK / 8][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+    for (int jn = 0; jn < BK / 16; ++jn) {
+      if (TAIL && ATTN_SKIP_KEY_FRAGMENTS && 16 * jn >= kv) continue;
+      uint32_t kfrag[4];
+      ldmatrix_x4(kfrag, Kt + (16 * jn + (lane & 7) + (lane >> 4) * 8) * LD + 16 * kk +
+                             ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(s[mt][2 * jn], qa[mt][kk], kfrag[0], kfrag[1]);
+        mma_bf16(s[mt][2 * jn + 1], qa[mt][kk], kfrag[2], kfrag[3]);
+      }
+    }
+  }
+
+  float2 kb[BK / 8];  // this thread's keys' biases
+  if (BIAS) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) kb[j] = *reinterpret_cast<const float2*>(Bt + 8 * j + 2 * tig);
+  }
+
+  // online softmax in base 2, one m-tile after the other; P in bf16,
+  // re-packed from the score fragments into A fragments of P.V
+  uint32_t pa[MT][BK / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float mx_lo = -INFINITY, mx_hi = -INFINITY;  // rows g and g + 8
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (BIAS) {  // with a bias the max is over scale * score + bias
+          const float b = e ? kb[j].y : kb[j].x;
+          s[mt][j][e] = fmaf(s[mt][j][e], sl2, b);
+          s[mt][j][2 + e] = fmaf(s[mt][j][2 + e], sl2, b);
+        }
+        if (TAIL && 8 * j + 2 * tig + e >= kv) s[mt][j][e] = s[mt][j][2 + e] = -INFINITY;
+        mx_lo = fmaxf(mx_lo, s[mt][j][e]);
+        mx_hi = fmaxf(mx_hi, s[mt][j][2 + e]);
+      }
+    }
+    // without a bias the max was taken over the raw scores (scale > 0)
+    const float m_lo = fmaxf(m[mt][0], BIAS ? quad_max(mx_lo) : quad_max(mx_lo) * sl2);
+    const float m_hi = fmaxf(m[mt][1], BIAS ? quad_max(mx_hi) : quad_max(mx_hi) * sl2);
+    const float sub_lo = finite_or_zero(m_lo), sub_hi = finite_or_zero(m_hi);
+    const float alpha_lo = fast_exp2(m[mt][0] - sub_lo);  // 0 while nothing was finite before
+    const float alpha_hi = fast_exp2(m[mt][1] - sub_hi);
+    m[mt][0] = m_lo;
+    m[mt][1] = m_hi;
+
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float sub = e < 2 ? sub_lo : sub_hi;
+        p[e] = fast_exp2(BIAS ? s[mt][j][e] - sub : fmaf(s[mt][j][e], sl2, -sub));
+      }
+      const uint32_t lo = pack_bf16(p[0], p[1]);
+      const uint32_t hi = pack_bf16(p[2], p[3]);
+      if (ATTN_SUM_ROUNDED) {
+        const float2 flo = unpack_bf16(lo), fhi = unpack_bf16(hi);
+        sum_lo += flo.x + flo.y;
+        sum_hi += fhi.x + fhi.y;
+      } else {
+        sum_lo += p[0] + p[1];
+        sum_hi += p[2] + p[3];
+      }
+      pa[mt][j >> 1][(j & 1) * 2] = lo;
+      pa[mt][j >> 1][(j & 1) * 2 + 1] = hi;
+    }
+    l[mt][0] = l[mt][0] * alpha_lo + sum_lo;
+    l[mt][1] = l[mt][1] * alpha_hi + sum_hi;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      o[mt][n][0] *= alpha_lo;
+      o[mt][n][1] *= alpha_lo;
+      o[mt][n][2] *= alpha_hi;
+      o[mt][n][3] *= alpha_hi;
+    }
+  }
+
+  // O += P V (V read transposed by ldmatrix); each V fragment read serves every m-tile
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    if (TAIL && ATTN_SKIP_KEY_FRAGMENTS && 16 * kk >= kv) continue;
+#pragma unroll
+    for (int nn = 0; nn < HD / 16; ++nn) {
+      uint32_t vfrag[4];
+      ldmatrix_x4_trans(vfrag, Vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                   16 * nn + (lane >> 4) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(o[mt][2 * nn], pa[mt][kk], vfrag[0], vfrag[1]);
+        mma_bf16(o[mt][2 * nn + 1], pa[mt][kk], vfrag[2], vfrag[3]);
+      }
+    }
   }
 }
 
-template <int HD, bool BIAS>
-__global__ void __launch_bounds__(NTHREADS) attention_bf16_kernel(const Args<bf16> a) {
-  using G = Bf16Geometry<HD, BIAS>;
+// One block: queries [q0, q0 + 64 * MT) of head blockIdx.y of item blockIdx.z.
+template <int HD, bool BIAS, int MT>
+__device__ __forceinline__ void attention_bf16_block(const Args<bf16>& a, int q0,
+                                                     unsigned char* smem) {
+  using G = Bf16Geometry<HD, BIAS, MT>;
   constexpr int LD = G::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ * LD;      // [2][BK][LD]
-  bf16* Vs = Ks + 2 * BK * LD;  // [2][BK][LD]
-  float* Bs = reinterpret_cast<float*>(smem + G::kTiles);  // [2][BK], with a bias only
+  bf16* Ks = Qs + G::ROWS * LD;      // [STAGES][BK][LD]
+  bf16* Vs = Ks + STAGES * BK * LD;  // [STAGES][BK][LD]
+  float* Bs = reinterpret_cast<float*>(smem + G::kTiles);  // [STAGES][BK], with a bias only
 
   const int S = a.S;
-  const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;   // fragment row (and row + 8)
-  const int tig = lane & 3;  // fragment column pair
+  const int wrow0 = q0 + warp * 16 * MT;  // this warp's first query row
   const long long in_off = b * a.in_b + h * a.in_h;
   const bf16* qb = a.q + in_off;
   const bf16* kb_ = a.k + in_off;
   const bf16* vb_ = a.v + in_off;
   const float* brow = BIAS ? a.bias + (long long)b * S : nullptr;
   const float sl2 = a.scale * LOG2E;  // softmax in base 2
-
-  load_tile_async<HD>(Qs, qb, q0, S, a.in_r);
-  load_tile_async<HD>(Ks, kb_, 0, S, a.in_r);
-  load_tile_async<HD>(Vs, vb_, 0, S, a.in_r);
-  if (BIAS) load_bias_async(Bs, brow, 0, S);
-  cp_async_commit();
-
-  uint32_t qa[HD / 16][4];
-  float o[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_lo = -INFINITY, m_hi = -INFINITY;  // running max of rows g and g + 8
-  float l_lo = 0.f, l_hi = 0.f;              // this thread's share of the row sums
-
   const int n_tiles = (S + BK - 1) / BK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {  // prefetch the next K/V (and bias) tile into the other stage
-      load_tile_async<HD>(Ks + (stage ^ 1) * BK * LD, kb_, (t + 1) * BK, S, a.in_r);
-      load_tile_async<HD>(Vs + (stage ^ 1) * BK * LD, vb_, (t + 1) * BK, S, a.in_r);
-      if (BIAS) load_bias_async(Bs + (stage ^ 1) * BK, brow, (t + 1) * BK, S);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        ldmatrix_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + 16 * kk + (lane >> 4) * 8);
-    }
-    const bf16* Kt = Ks + stage * BK * LD;
-    const bf16* Vt = Vs + stage * BK * LD;
-    const float* Bt = Bs + stage * BK;
+  // a warp whose rows all lie past S takes part in the loads and barriers only
+  const bool active = !ATTN_SKIP_PAST_S || wrow0 < S;
 
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
-    float s[BK / 8][4];
+  // the ring's first STAGES - 1 tiles (one cp.async group each, empty past the end)
+  load_tile_async<HD, G::ROWS>(Qs, qb, q0, S, a.in_r);
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int jn = 0; jn < BK / 16; ++jn) {
-        uint32_t kfrag[4];
-        ldmatrix_x4(kfrag, Kt + (16 * jn + (lane & 7) + (lane >> 4) * 8) * LD + 16 * kk +
-                               ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * jn], qa[kk], kfrag[0], kfrag[1]);
-        mma_bf16(s[2 * jn + 1], qa[kk], kfrag[2], kfrag[3]);
-      }
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_tiles) {
+      load_tile_async<HD, BK>(Ks + t * BK * LD, kb_, t * BK, S, a.in_r);
+      load_tile_async<HD, BK>(Vs + t * BK * LD, vb_, t * BK, S, a.in_r);
+      if (BIAS && threadIdx.x < BK) Bs[t * BK + threadIdx.x] = load_bias(brow, t * BK, S);
     }
-
-    // online softmax (base 2): scale, add the key's bias, mask keys >= S
-    const int k0 = t * BK;
-    float mx_lo = m_lo, mx_hi = m_hi;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * j + 2 * tig + e;
-        const bool ok = k0 + col < S;
-        const float kbias = BIAS ? Bt[col] * LOG2E : 0.f;
-        s[j][e] = ok ? fmaf(s[j][e], sl2, kbias) : -INFINITY;
-        s[j][2 + e] = ok ? fmaf(s[j][2 + e], sl2, kbias) : -INFINITY;
-        mx_lo = fmaxf(mx_lo, s[j][e]);
-        mx_hi = fmaxf(mx_hi, s[j][2 + e]);
-      }
-    }
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 1));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
-    const float sub_lo = finite_or_zero(mx_lo), sub_hi = finite_or_zero(mx_hi);
-    const float alpha_lo = exp2f(m_lo - sub_lo);  // 0 while nothing was finite before
-    const float alpha_hi = exp2f(m_hi - sub_hi);
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-
-    // P in bf16, re-packed from the score fragments into A fragments of P.V;
-    // the row sums add the rounded values that P.V actually uses
-    uint32_t pa[BK / 16][4];
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      const uint32_t lo = pack_bf16(exp2f(s[j][0] - sub_lo), exp2f(s[j][1] - sub_lo));
-      const uint32_t hi = pack_bf16(exp2f(s[j][2] - sub_hi), exp2f(s[j][3] - sub_hi));
-      const float2 flo = unpack_bf16(lo), fhi = unpack_bf16(hi);
-      sum_lo += flo.x + flo.y;
-      sum_hi += fhi.x + fhi.y;
-      pa[j >> 1][(j & 1) * 2] = lo;
-      pa[j >> 1][(j & 1) * 2 + 1] = hi;
-    }
-    l_lo = l_lo * alpha_lo + sum_lo;
-    l_hi = l_hi * alpha_hi + sum_hi;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[n][0] *= alpha_lo;
-      o[n][1] *= alpha_lo;
-      o[n][2] *= alpha_hi;
-      o[n][3] *= alpha_hi;
-    }
-
-    // O += P V (V read transposed by ldmatrix)
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int nn = 0; nn < HD / 16; ++nn) {
-        uint32_t vfrag[4];
-        ldmatrix_x4_trans(vfrag, Vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                     16 * nn + (lane >> 4) * 8);
-        mma_bf16(o[2 * nn], pa[kk], vfrag[0], vfrag[1]);
-        mma_bf16(o[2 * nn + 1], pa[kk], vfrag[2], vfrag[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's prefetch
+    cp_async_commit();
   }
 
-  // full row sums across the quad that shares each row
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 1);
-  l_lo += __shfl_xor_sync(0xffffffffu, l_lo, 2);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 1);
-  l_hi += __shfl_xor_sync(0xffffffffu, l_hi, 2);
-  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;  // no finite score: zeros
-  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
-  const int row_lo = q0 + warp * 16 + g;
-  const int row_hi = row_lo + 8;
+  uint32_t qa[MT][HD / 16][4];
+  float o[MT][HD / 8][4];
+  float m[MT][2], l[MT][2];  // running max of rows g and g + 8; this thread's share of the sums
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<STAGES - 2>();  // tile t has landed
+    __syncthreads();              // ... for every thread; and tile t - 1 is consumed
+    // refill the stage of tile t - 1 with tile t + STAGES - 1; its bias waits
+    // in a register until this tile is done
+    const int pf = t + STAGES - 1, pf_stage = pf % STAGES;
+    float pf_bias = 0.f;
+    if (pf < n_tiles) {
+      load_tile_async<HD, BK>(Ks + pf_stage * BK * LD, kb_, pf * BK, S, a.in_r);
+      load_tile_async<HD, BK>(Vs + pf_stage * BK * LD, vb_, pf * BK, S, a.in_r);
+      if (BIAS) pf_bias = load_bias(brow, pf * BK, S);
+    }
+    cp_async_commit();
+
+    if (active) {
+      if (t == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk)
+            ldmatrix_x4(qa[mt][kk], Qs + ((warp * MT + mt) * 16 + (lane & 15)) * LD + 16 * kk +
+                                        (lane >> 4) * 8);
+      }
+      const int stage = t % STAGES;
+      const bf16* Kt = Ks + stage * BK * LD;
+      const bf16* Vt = Vs + stage * BK * LD;
+      const float* Bt = Bs + stage * BK;
+      const int kv = S - t * BK;  // valid keys from this tile on
+      if (ATTN_SPLIT_TAIL && kv >= BK)
+        attend_tile<HD, BIAS, MT, false>(Kt, Vt, Bt, BK, sl2, lane, qa, o, m, l);
+      else
+        attend_tile<HD, BIAS, MT, true>(Kt, Vt, Bt, kv, sl2, lane, qa, o, m, l);
+    }
+    if (BIAS && pf < n_tiles && threadIdx.x < BK) Bs[pf_stage * BK + threadIdx.x] = pf_bias;
+  }
+  if (!active) return;
+
+  const int g = lane >> 2;   // fragment row (and row + 8)
+  const int tig = lane & 3;  // fragment column pair
   bf16* dst = a.o + b * a.out_b + h * a.out_h + 2 * tig;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    if (row_lo < S)
-      *reinterpret_cast<uint32_t*>(dst + row_lo * a.out_r + 8 * n) =
-          pack_bf16(o[n][0] * inv_lo, o[n][1] * inv_lo);
-    if (row_hi < S)
-      *reinterpret_cast<uint32_t*>(dst + row_hi * a.out_r + 8 * n) =
-          pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
+  for (int mt = 0; mt < MT; ++mt) {
+    // full row sums across the quad that shares each row
+    const float l_lo = quad_sum(l[mt][0]), l_hi = quad_sum(l[mt][1]);
+    const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;  // no finite score: zeros
+    const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
+    const int row_lo = wrow0 + 16 * mt + g;
+    const int row_hi = row_lo + 8;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      if (row_lo < S)
+        *reinterpret_cast<uint32_t*>(dst + row_lo * a.out_r + 8 * n) =
+            pack_bf16(o[mt][n][0] * inv_lo, o[mt][n][1] * inv_lo);
+      if (row_hi < S)
+        *reinterpret_cast<uint32_t*>(dst + row_hi * a.out_r + 8 * n) =
+            pack_bf16(o[mt][n][2] * inv_hi, o[mt][n][3] * inv_hi);
+    }
   }
+}
+
+// Whether the last block of a grid of 128-query blocks is a 64-query one: a
+// ragged rest of at most 64 rows (433 = 3 * 128 + 49, 289 = 2 * 128 + 33)
+// then costs half a block's time; a longer rest (577 = 4 * 128 + 65) stays
+// one 128-query block.
+__host__ __device__ constexpr bool narrow_last_block(int S) {
+  return ATTN_NARROW_TAIL && S % 128 > 0 && S % 128 <= 64;
+}
+
+template <int HD, bool BIAS, int MT>
+__global__ void __launch_bounds__(NTHREADS, MT == 2 ? 2 : 1)
+    attention_bf16_kernel(const Args<bf16> a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  if (MT == 2 && narrow_last_block(a.S) && blockIdx.x == gridDim.x - 1)
+    attention_bf16_block<HD, BIAS, 1>(a, blockIdx.x * 128, smem);
+  else
+    attention_bf16_block<HD, BIAS, MT>(a, blockIdx.x * 64 * MT, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -342,11 +477,11 @@ __global__ void __launch_bounds__(NTHREADS) attention_bf16_kernel(const Args<bf1
 template <int HD>
 struct Fp32Geometry {
   static constexpr int LD = HD + 1;   // Q, K, V rows: conflict-free column reads
-  static constexpr int LDS = BK + 4;  // scores / probabilities
+  static constexpr int LDS = BK32 + 4;  // scores / probabilities
   static constexpr int LDO = HD + 4;  // output accumulator
   static constexpr size_t kK = align128(sizeof(float) * BQ * LD);
-  static constexpr size_t kV = kK + align128(sizeof(float) * BK * LD);
-  static constexpr size_t kS = kV + align128(sizeof(float) * BK * LD);
+  static constexpr size_t kV = kK + align128(sizeof(float) * BK32 * LD);
+  static constexpr size_t kS = kV + align128(sizeof(float) * BK32 * LD);
   static constexpr size_t kO = kS + align128(sizeof(float) * BQ * LDS);
   static constexpr size_t kBytes = kO + align128(sizeof(float) * BQ * LDO);
 };
@@ -400,7 +535,7 @@ __global__ void __launch_bounds__(NTHREADS) attention_fp32_kernel(const Args<flo
     l_run[r] = 0.f;
   }
   const int row0 = warp * 16;
-  for (int k0 = 0; k0 < S; k0 += BK) {
+  for (int k0 = 0; k0 < S; k0 += BK32) {
     __syncthreads();  // previous tile's K/V fully consumed
     load_tile_fp32<HD>(Ks, a.k + in_off, k0, S, a.in_r);
     load_tile_fp32<HD>(Vs, a.v + in_off, k0, S, a.in_r);
@@ -441,7 +576,7 @@ __global__ void __launch_bounds__(NTHREADS) attention_fp32_kernel(const Args<flo
       for (int c = lane; c < HD; c += 32) {
         float acc = Os[r * G::LDO + c];
 #pragma unroll 16
-        for (int k = 0; k < BK; ++k) acc = fmaf(Ss[r * G::LDS + k], Vs[k * G::LD + c], acc);
+        for (int k = 0; k < BK32; ++k) acc = fmaf(Ss[r * G::LDS + k], Vs[k * G::LD + c], acc);
         Os[r * G::LDO + c] = acc;
       }
     }
@@ -470,7 +605,7 @@ struct Layout {
 };
 
 template <typename T, typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const Layout& L, int B, int S, int H,
+cudaError_t launch(Kernel kernel, size_t smem, int rows, const Layout& L, int B, int S, int H,
                    float scale, cudaStream_t stream) {
   const cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -478,33 +613,53 @@ cudaError_t launch(Kernel kernel, size_t smem, const Layout& L, int B, int S, in
   const Args<T> a{static_cast<const T*>(L.q), static_cast<const T*>(L.k),
                   static_cast<const T*>(L.v), static_cast<T*>(L.o), L.bias, L.in_b, L.in_h,
                   L.in_r, L.out_b, L.out_h, L.out_r, S, scale};
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  const dim3 grid((S + rows - 1) / rows, H, B);
   kernel<<<grid, NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// Whether a bf16 hd = 64 call takes 128-query blocks (32 rows per warp): only
+// if they fill every SM's two block slots; a smaller grid spreads wider over
+// the card in 64-query blocks. A function of the shape alone, never of the layout.
+bool wide_blocks(int B, int S, int H, int sm_count) {
+  if (ATTN_QTILES) return ATTN_QTILES == 2;
+  return (long long)B * H * ((S + 127) / 128) >= 2LL * sm_count;
+}
+
 template <int HD, bool BIAS>
 cudaError_t launch_hd(bool is_bf16, const Layout& L, int B, int S, int H, float scale,
-                      cudaStream_t stream) {
-  if (is_bf16)
-    return launch<bf16>(attention_bf16_kernel<HD, BIAS>, Bf16Geometry<HD, BIAS>::kBytes, L, B,
-                        S, H, scale, stream);
-  return launch<float>(attention_fp32_kernel<HD, BIAS>, Fp32Geometry<HD>::kBytes, L, B, S, H,
-                       scale, stream);
+                      int sm_count, cudaStream_t stream) {
+  if (!is_bf16)
+    return launch<float>(attention_fp32_kernel<HD, BIAS>, Fp32Geometry<HD>::kBytes, BQ, L, B, S,
+                         H, scale, stream);
+  if constexpr (HD == 64) {
+    if (wide_blocks(B, S, H, sm_count))
+      return launch<bf16>(attention_bf16_kernel<HD, BIAS, 2>, Bf16Geometry<HD, BIAS, 2>::kBytes,
+                          128, L, B, S, H, scale, stream);
+  }
+  return launch<bf16>(attention_bf16_kernel<HD, BIAS, 1>, Bf16Geometry<HD, BIAS, 1>::kBytes, 64,
+                      L, B, S, H, scale, stream);
 }
 
 template <bool BIAS>
 int dispatch(const Layout& L, int B, int S, int H, int hd, int is_bf16, float scale,
              int device, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
+  static int sm_counts[64] = {};  // per device, read once
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
+  if (sm_counts[device] == 0) {
+    e = cudaDeviceGetAttribute(&sm_counts[device], cudaDevAttrMultiProcessorCount, device);
+    if (e != cudaSuccess) return e;
+  }
+  const int sms = sm_counts[device];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: e = launch_hd<16, BIAS>(is_bf16, L, B, S, H, scale, st); break;
-    case 32: e = launch_hd<32, BIAS>(is_bf16, L, B, S, H, scale, st); break;
-    case 64: e = launch_hd<64, BIAS>(is_bf16, L, B, S, H, scale, st); break;
-    case 128: e = launch_hd<128, BIAS>(is_bf16, L, B, S, H, scale, st); break;
+    case 16: e = launch_hd<16, BIAS>(is_bf16, L, B, S, H, scale, sms, st); break;
+    case 32: e = launch_hd<32, BIAS>(is_bf16, L, B, S, H, scale, sms, st); break;
+    case 64: e = launch_hd<64, BIAS>(is_bf16, L, B, S, H, scale, sms, st); break;
+    case 128: e = launch_hd<128, BIAS>(is_bf16, L, B, S, H, scale, sms, st); break;
     default: e = cudaErrorInvalidValue;
   }
   return (int)e;

@@ -48,6 +48,54 @@ def test_attention_kernel_matches_plain(cuda, shape, heads, dtype, bound):
     assert _rel(got, A.attention_packed_reference(qkv, heads)) <= bound
 
 
+def _wide_grid(batch, heads, s):
+    """Whether a bf16 hd=64 call of this shape takes the 128-query blocks (32
+    rows per warp) on this card: csrc/attention_packed.cu::wide_blocks."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return batch * heads * -(-s // 128) >= 2 * sms
+
+
+def _packed_case(cuda, batch, s, heads, hd, dtype, with_bias):
+    qkv = torch.randn((batch, s, 3 * heads * hd), generator=cuda, device="cuda").to(dtype)
+    bias = _log_sizes((batch, s), cuda) if with_bias else None
+    kernel = A.K3 if with_bias else A.K1
+    before = kernel.launches
+    got = A.attention_packed(qkv, heads, bias)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert got.shape == (batch, s, heads * hd) and torch.isfinite(got).all()
+    return _rel(got, A.attention_packed_reference(qkv, heads, bias))
+
+
+# the edges of the 64-key tiles and of the 64- and 128-query blocks, K1 and K3 at hd 64:
+# (1, 2) is a grid that stays on 64-query blocks, (24, 16) one that takes the 128-query
+# blocks on a card of up to 192 SMs (the test checks that it does on this one)
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 191, 257])
+@pytest.mark.parametrize("batch,heads,wide", [(1, 2, False), (24, 16, True)])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+def test_attention_kernel_tile_edges(cuda, s, batch, heads, wide, with_bias, dtype, bound):
+    assert _wide_grid(batch, heads, s) == wide
+    assert _packed_case(cuda, batch, s, heads, 64, dtype, with_bias) <= bound
+
+
+@pytest.mark.parametrize("s", [65, 129])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+def test_attention_kernel_tile_edges_head_dim_128(cuda, s, with_bias, dtype, bound):
+    assert _packed_case(cuda, 2, s, 2, 128, dtype, with_bias) <= bound
+
+
+@pytest.mark.parametrize("s", [128 + 1, 128 + 33, 384 + 64])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_attention_wide_block_with_whole_warps_past_the_end(cuda, s, with_bias):
+    """The last 128-query block holds 1, 33 or 64 valid rows: one warp with a
+    single row, then whole warps past S that must skip their compute and
+    still take part in the loads and barriers."""
+    assert _wide_grid(24, 16, s)
+    assert _packed_case(cuda, 24, s, 16, 64, torch.bfloat16, with_bias) <= 1e-2
+
+
 def test_attention_kernel_raises_on_unsupported_head_dim(cuda):
     with pytest.raises(ValueError):
         A.attention_packed(torch.zeros(1, 8, 3 * 2 * 24, device="cuda"), 2)
