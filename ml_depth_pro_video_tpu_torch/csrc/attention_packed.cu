@@ -34,17 +34,23 @@
 //   the probabilities and the output accumulator kept in registers (the
 //   score accumulator fragment is re-packed as the A operand of P.V); K and
 //   V tiles ride a cp.async ring in shared memory and are read with
-//   ldmatrix (V transposed on the fly). Shared-memory reads, not the tensor
-//   cores, cap a warp that owns 16 query rows (each K and V fragment read
-//   serves one mma pair), so at hd = 64 a warp owns 32 rows (128 queries
-//   per block) and uses each fragment twice; a grid too small to fill the
-//   card with such blocks keeps 64-query blocks (chosen from the shape
-//   alone, so K4 and K1 run the same instance on the same data). S = 577 is
+//   ldmatrix (V transposed on the fly). A warp that owns 16 query rows
+//   reads each K and V fragment for one mma pair, and those shared-memory
+//   reads weigh as much as the tensor-core time; so at hd = 64 a warp owns
+//   32 rows (128 queries per block) and uses each fragment twice; a grid
+//   too small to fill the card with such blocks keeps 64-query blocks
+//   (chosen from the shape alone, so K4 and K1 run the same instance on
+//   the same data). S = 577 is
 //   9 * 64 + 1: warps whose rows all lie past S skip their compute, a ragged
 //   rest of at most 64 rows takes a 64-query block, and only the last key
-//   tile pays for the key mask.
-// - fp32 (parity mode): the same tiling with plain fp32 FMAs in shared
-//   memory, so it keeps full fp32 accuracy (no TF32).
+//   tile pays for the key mask. That last tile still computes all of its
+//   key fragments: skipping the 16-key fragments past S was tried and
+//   dropped, because it measured 5% slower on an H100 (700 W) at
+//   (70, 577, 3072), 0.4938 ms against 0.4690, and 4% slower with a bias at
+//   (70, 433, 3072), 0.3118 against 0.3001: the branches cut the unrolled
+//   tile into blocks across which ldmatrix and mma no longer overlap.
+// - fp32 (parity mode): plain fp32 FMAs (no TF32, no tensor cores), register
+//   tiled as an SGEMM is: see the fp32 section.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,43 +58,16 @@
 #include <math.h>
 #include <stdint.h>
 
-// Build-time switches for measuring one design choice at a time
-// (scripts/torch_attention_variants.py); the defaults are what ships.
-#ifndef ATTN_STAGES
-#define ATTN_STAGES 2  // depth of the bf16 K/V cp.async ring
-#endif
-#ifndef ATTN_QTILES
-#define ATTN_QTILES 0  // 16-row m-tiles per warp at hd = 64: 0 = by grid size, 1 or 2 = forced
-#endif
-#ifndef ATTN_SKIP_PAST_S
-#define ATTN_SKIP_PAST_S 1  // warps whose rows all lie past S skip their compute
-#endif
-#ifndef ATTN_SKIP_KEY_FRAGMENTS
-#define ATTN_SKIP_KEY_FRAGMENTS 0  // the last key tile skips its 16-key fragments past S
-#endif
-#ifndef ATTN_SPLIT_TAIL
-#define ATTN_SPLIT_TAIL 1  // mask keys >= S in the last key tile only
-#endif
-#ifndef ATTN_NARROW_TAIL
-#define ATTN_NARROW_TAIL 1  // a ragged rest of <= 64 rows takes a 64-query block, not a 128-query one
-#endif
-#ifndef ATTN_SUM_ROUNDED
-#define ATTN_SUM_ROUNDED 0  // row sums of the bf16-rounded probabilities, not the fp32 ones
-#endif
-
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;   // queries per block (fp32 body; bf16: 64 per m-tile of its warps)
+constexpr int BQ = 64;    // queries per block (fp32; the bf16 body's blocks hold 64 or 128)
 constexpr int BK = 64;    // keys per tile (bf16)
 constexpr int BK32 = 64;  // keys per tile (fp32)
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
-constexpr int STAGES = ATTN_STAGES;
 constexpr float LOG2E = 1.4426950408889634f;
-
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
 // Where one call's tensors live: element pointers at (batch 0, head 0, row 0)
 // and element strides. q, k and v share their strides (true of both the
@@ -106,23 +85,11 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 // the max to subtract before exp: 0 while the running max is still -inf
 __device__ __forceinline__ float finite_or_zero(float m) { return m == -INFINITY ? 0.f : m; }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores, register-resident scores and output
+// cp.async tile loads, shared by both bodies
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -134,12 +101,36 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                "l"(src), "r"(valid ? 16 : 0));
 }
 
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// rows [row0, row0+ROWS) of one head's q, k or v -> shared memory, zero past S;
+// rows padded by one 16-byte chunk
+template <typename T, int HD, int ROWS>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* __restrict__ src, int row0,
+                                                int S, long long row_stride) {
+  constexpr int EPC = 16 / sizeof(T);  // elements per 16-byte chunk
+  constexpr int LD = HD + EPC;
+  constexpr int CPR = HD / EPC;  // chunks per row
+  const int c = (threadIdx.x % CPR) * EPC;
+#pragma unroll
+  for (int r = threadIdx.x / CPR; r < ROWS; r += NTHREADS / CPR) {
+    const bool valid = row0 + r < S;
+    cp_async16(dst + r * LD + c, src + (valid ? row0 + r : 0) * row_stride + c, valid);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores, register-resident scores and output
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -175,10 +166,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-}
-
 __device__ __forceinline__ float quad_max(float v) {  // over the 4 lanes that share a row
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -195,44 +182,34 @@ struct Bf16Geometry {
   static constexpr int ROWS = 64 * MT;
   static constexpr int LD = HD + 8;  // padded rows: conflict-free ldmatrix
   static constexpr size_t kTiles =
-      sizeof(bf16) * (size_t)(ROWS + 2 * STAGES * BK) * LD;  // Q, STAGES x (K, V)
-  static constexpr size_t kBytes = kTiles + (BIAS ? sizeof(float) * STAGES * BK : 0);
+      sizeof(bf16) * (size_t)(ROWS + 4 * BK) * LD;  // Q, two stages of (K, V)
+  static constexpr size_t kBytes = kTiles + (BIAS ? sizeof(float) * 2 * BK : 0);
 };
 
-// rows [row0, row0+ROWS) of one head's q, k or v -> shared memory, zero past S
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restrict__ src,
-                                                int row0, int S, long long row_stride) {
-  constexpr int LD = HD + 8;
-  constexpr int CPR = HD / 8;  // 16-byte chunks per row
-  const int c = (threadIdx.x % CPR) * 8;
-#pragma unroll
-  for (int r = threadIdx.x / CPR; r < ROWS; r += NTHREADS / CPR) {
-    const bool valid = row0 + r < S;
-    cp_async16(dst + r * LD + c, src + (valid ? row0 + r : 0) * row_stride + c, valid);
+// the bias of keys [k0, k0+64) -> shared memory (zero past S; masked anyway)
+__device__ __forceinline__ void load_bias_async(float* dst, const float* __restrict__ row,
+                                                int k0, int S) {
+  if (threadIdx.x < BK) {
+    const bool valid = k0 + (int)threadIdx.x < S;
+    cp_async4(dst + threadIdx.x, row + (valid ? k0 + threadIdx.x : 0), valid);
   }
-}
-
-// the bias of key k0 + threadIdx.x, in the base-2 units of the softmax (0 past S; masked anyway)
-__device__ __forceinline__ float load_bias(const float* __restrict__ row, int k0, int S) {
-  const int key = k0 + (int)threadIdx.x;
-  return threadIdx.x < BK && key < S ? __ldg(row + key) * LOG2E : 0.f;
 }
 
 // One 64-key tile for one warp: S = Q K^T, the online softmax, O += P V.
 // TAIL: the tile holds only `kv` < 64 valid keys, so the mask applies; V rows
 // past S are zero in shared memory, so their zero probabilities add zeros.
-// Skipping the tile's 16-key fragments past S as well (ATTN_SKIP_KEY_FRAGMENTS)
-// measured slower than computing them: the branches cut the unrolled tile
-// into blocks across which loads and mma no longer overlap.
 template <int HD, bool BIAS, int MT, bool TAIL>
 __device__ __forceinline__ void attend_tile(const bf16* Kt, const bf16* Vt, const float* Bt,
-                                            int kv, float sl2, int lane,
+                                            int kv, float scale, int lane,
                                             const uint32_t (&qa)[MT][HD / 16][4],
                                             float (&o)[MT][HD / 8][4], float (&m)[MT][2],
                                             float (&l)[MT][2]) {
   constexpr int LD = HD + 8;
   const int tig = lane & 3;  // fragment column pair
+  // The softmax runs in base 2: exp(x - max) = 2^(x * c2 - max * c2), one FMA
+  // per score. Without a bias x is the raw score and c2 folds the scale in;
+  // with one, x = scale * score + bias comes first and c2 is log2(e).
+  const float c2 = BIAS ? LOG2E : scale * LOG2E;
 
   // raw scores of this warp's 16 * MT rows x 64 keys (8 n-tiles of 8 keys);
   // each K fragment read serves every m-tile
@@ -245,7 +222,6 @@ __device__ __forceinline__ void attend_tile(const bf16* Kt, const bf16* Vt, cons
   for (int kk = 0; kk < HD / 16; ++kk) {
 #pragma unroll
     for (int jn = 0; jn < BK / 16; ++jn) {
-      if (TAIL && ATTN_SKIP_KEY_FRAGMENTS && 16 * jn >= kv) continue;
       uint32_t kfrag[4];
       ldmatrix_x4(kfrag, Kt + (16 * jn + (lane & 7) + (lane >> 4) * 8) * LD + 16 * kk +
                              ((lane >> 3) & 1) * 8);
@@ -257,12 +233,6 @@ __device__ __forceinline__ void attend_tile(const bf16* Kt, const bf16* Vt, cons
     }
   }
 
-  float2 kb[BK / 8];  // this thread's keys' biases
-  if (BIAS) {
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) kb[j] = *reinterpret_cast<const float2*>(Bt + 8 * j + 2 * tig);
-  }
-
   // online softmax in base 2, one m-tile after the other; P in bf16,
   // re-packed from the score fragments into A fragments of P.V
   uint32_t pa[MT][BK / 16][4];
@@ -271,21 +241,23 @@ __device__ __forceinline__ void attend_tile(const bf16* Kt, const bf16* Vt, cons
     float mx_lo = -INFINITY, mx_hi = -INFINITY;  // rows g and g + 8
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
+      float2 kb;  // the biases of this thread's two keys of the fragment
+      if (BIAS) kb = *reinterpret_cast<const float2*>(Bt + 8 * j + 2 * tig);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        if (BIAS) {  // with a bias the max is over scale * score + bias
-          const float b = e ? kb[j].y : kb[j].x;
-          s[mt][j][e] = fmaf(s[mt][j][e], sl2, b);
-          s[mt][j][2 + e] = fmaf(s[mt][j][2 + e], sl2, b);
+        if (BIAS) {
+          const float b = e ? kb.y : kb.x;
+          s[mt][j][e] = fmaf(s[mt][j][e], scale, b);
+          s[mt][j][2 + e] = fmaf(s[mt][j][2 + e], scale, b);
         }
         if (TAIL && 8 * j + 2 * tig + e >= kv) s[mt][j][e] = s[mt][j][2 + e] = -INFINITY;
         mx_lo = fmaxf(mx_lo, s[mt][j][e]);
         mx_hi = fmaxf(mx_hi, s[mt][j][2 + e]);
       }
     }
-    // without a bias the max was taken over the raw scores (scale > 0)
-    const float m_lo = fmaxf(m[mt][0], BIAS ? quad_max(mx_lo) : quad_max(mx_lo) * sl2);
-    const float m_hi = fmaxf(m[mt][1], BIAS ? quad_max(mx_hi) : quad_max(mx_hi) * sl2);
+    // the running max in base-2 units (c2 > 0, so the max commutes with it)
+    const float m_lo = fmaxf(m[mt][0], quad_max(mx_lo) * c2);
+    const float m_hi = fmaxf(m[mt][1], quad_max(mx_hi) * c2);
     const float sub_lo = finite_or_zero(m_lo), sub_hi = finite_or_zero(m_hi);
     const float alpha_lo = fast_exp2(m[mt][0] - sub_lo);  // 0 while nothing was finite before
     const float alpha_hi = fast_exp2(m[mt][1] - sub_hi);
@@ -299,18 +271,12 @@ __device__ __forceinline__ void attend_tile(const bf16* Kt, const bf16* Vt, cons
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float sub = e < 2 ? sub_lo : sub_hi;
-        p[e] = fast_exp2(BIAS ? s[mt][j][e] - sub : fmaf(s[mt][j][e], sl2, -sub));
+        p[e] = fast_exp2(fmaf(s[mt][j][e], c2, -sub));
       }
       const uint32_t lo = pack_bf16(p[0], p[1]);
       const uint32_t hi = pack_bf16(p[2], p[3]);
-      if (ATTN_SUM_ROUNDED) {
-        const float2 flo = unpack_bf16(lo), fhi = unpack_bf16(hi);
-        sum_lo += flo.x + flo.y;
-        sum_hi += fhi.x + fhi.y;
-      } else {
-        sum_lo += p[0] + p[1];
-        sum_hi += p[2] + p[3];
-      }
+      sum_lo += p[0] + p[1];  // the fp32 values, not the rounded ones
+      sum_hi += p[2] + p[3];
       pa[mt][j >> 1][(j & 1) * 2] = lo;
       pa[mt][j >> 1][(j & 1) * 2 + 1] = hi;
     }
@@ -328,7 +294,6 @@ __device__ __forceinline__ void attend_tile(const bf16* Kt, const bf16* Vt, cons
   // O += P V (V read transposed by ldmatrix); each V fragment read serves every m-tile
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
-    if (TAIL && ATTN_SKIP_KEY_FRAGMENTS && 16 * kk >= kv) continue;
 #pragma unroll
     for (int nn = 0; nn < HD / 16; ++nn) {
       uint32_t vfrag[4];
@@ -350,9 +315,9 @@ __device__ __forceinline__ void attention_bf16_block(const Args<bf16>& a, int q0
   using G = Bf16Geometry<HD, BIAS, MT>;
   constexpr int LD = G::LD;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + G::ROWS * LD;      // [STAGES][BK][LD]
-  bf16* Vs = Ks + STAGES * BK * LD;  // [STAGES][BK][LD]
-  float* Bs = reinterpret_cast<float*>(smem + G::kTiles);  // [STAGES][BK], with a bias only
+  bf16* Ks = Qs + G::ROWS * LD;  // [2][BK][LD]
+  bf16* Vs = Ks + 2 * BK * LD;   // [2][BK][LD]
+  float* Bs = reinterpret_cast<float*>(smem + G::kTiles);  // [2][BK], with a bias only
 
   const int S = a.S;
   const int h = blockIdx.y;
@@ -365,22 +330,15 @@ __device__ __forceinline__ void attention_bf16_block(const Args<bf16>& a, int q0
   const bf16* kb_ = a.k + in_off;
   const bf16* vb_ = a.v + in_off;
   const float* brow = BIAS ? a.bias + (long long)b * S : nullptr;
-  const float sl2 = a.scale * LOG2E;  // softmax in base 2
   const int n_tiles = (S + BK - 1) / BK;
   // a warp whose rows all lie past S takes part in the loads and barriers only
-  const bool active = !ATTN_SKIP_PAST_S || wrow0 < S;
+  const bool active = wrow0 < S;
 
-  // the ring's first STAGES - 1 tiles (one cp.async group each, empty past the end)
-  load_tile_async<HD, G::ROWS>(Qs, qb, q0, S, a.in_r);
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < n_tiles) {
-      load_tile_async<HD, BK>(Ks + t * BK * LD, kb_, t * BK, S, a.in_r);
-      load_tile_async<HD, BK>(Vs + t * BK * LD, vb_, t * BK, S, a.in_r);
-      if (BIAS && threadIdx.x < BK) Bs[t * BK + threadIdx.x] = load_bias(brow, t * BK, S);
-    }
-    cp_async_commit();
-  }
+  load_tile_async<bf16, HD, G::ROWS>(Qs, qb, q0, S, a.in_r);
+  load_tile_async<bf16, HD, BK>(Ks, kb_, 0, S, a.in_r);
+  load_tile_async<bf16, HD, BK>(Vs, vb_, 0, S, a.in_r);
+  if (BIAS) load_bias_async(Bs, brow, 0, S);
+  cp_async_commit();
 
   uint32_t qa[MT][HD / 16][4];
   float o[MT][HD / 8][4];
@@ -394,16 +352,13 @@ __device__ __forceinline__ void attention_bf16_block(const Args<bf16>& a, int q0
   }
 
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<STAGES - 2>();  // tile t has landed
-    __syncthreads();              // ... for every thread; and tile t - 1 is consumed
-    // refill the stage of tile t - 1 with tile t + STAGES - 1; its bias waits
-    // in a register until this tile is done
-    const int pf = t + STAGES - 1, pf_stage = pf % STAGES;
-    float pf_bias = 0.f;
-    if (pf < n_tiles) {
-      load_tile_async<HD, BK>(Ks + pf_stage * BK * LD, kb_, pf * BK, S, a.in_r);
-      load_tile_async<HD, BK>(Vs + pf_stage * BK * LD, vb_, pf * BK, S, a.in_r);
-      if (BIAS) pf_bias = load_bias(brow, pf * BK, S);
+    cp_async_wait<0>();  // tile t has landed
+    __syncthreads();     // ... for every thread; and tile t - 1 is consumed
+    if (t + 1 < n_tiles) {  // refill the stage of tile t - 1 with tile t + 1
+      const int st = (t + 1) & 1;
+      load_tile_async<bf16, HD, BK>(Ks + st * BK * LD, kb_, (t + 1) * BK, S, a.in_r);
+      load_tile_async<bf16, HD, BK>(Vs + st * BK * LD, vb_, (t + 1) * BK, S, a.in_r);
+      if (BIAS) load_bias_async(Bs + st * BK, brow, (t + 1) * BK, S);
     }
     cp_async_commit();
 
@@ -416,17 +371,16 @@ __device__ __forceinline__ void attention_bf16_block(const Args<bf16>& a, int q0
             ldmatrix_x4(qa[mt][kk], Qs + ((warp * MT + mt) * 16 + (lane & 15)) * LD + 16 * kk +
                                         (lane >> 4) * 8);
       }
-      const int stage = t % STAGES;
+      const int stage = t & 1;
       const bf16* Kt = Ks + stage * BK * LD;
       const bf16* Vt = Vs + stage * BK * LD;
       const float* Bt = Bs + stage * BK;
       const int kv = S - t * BK;  // valid keys from this tile on
-      if (ATTN_SPLIT_TAIL && kv >= BK)
-        attend_tile<HD, BIAS, MT, false>(Kt, Vt, Bt, BK, sl2, lane, qa, o, m, l);
+      if (kv >= BK)
+        attend_tile<HD, BIAS, MT, false>(Kt, Vt, Bt, BK, a.scale, lane, qa, o, m, l);
       else
-        attend_tile<HD, BIAS, MT, true>(Kt, Vt, Bt, kv, sl2, lane, qa, o, m, l);
+        attend_tile<HD, BIAS, MT, true>(Kt, Vt, Bt, kv, a.scale, lane, qa, o, m, l);
     }
-    if (BIAS && pf < n_tiles && threadIdx.x < BK) Bs[pf_stage * BK + threadIdx.x] = pf_bias;
   }
   if (!active) return;
 
@@ -458,7 +412,7 @@ __device__ __forceinline__ void attention_bf16_block(const Args<bf16>& a, int q0
 // then costs half a block's time; a longer rest (577 = 4 * 128 + 65) stays
 // one 128-query block.
 __host__ __device__ constexpr bool narrow_last_block(int S) {
-  return ATTN_NARROW_TAIL && S % 128 > 0 && S % 128 <= 64;
+  return S % 128 > 0 && S % 128 <= 64;
 }
 
 template <int HD, bool BIAS, int MT>
@@ -472,123 +426,208 @@ __global__ void __launch_bounds__(NTHREADS, MT == 2 ? 2 : 1)
 }
 
 // ---------------------------------------------------------------------------
-// fp32 (parity mode): plain FMAs through shared memory
+// fp32 (parity mode): register-tiled FMAs, full fp32 (no TF32, no tensor cores)
+//
+// One block owns 64 queries and walks the 64-key tiles of a cp.async ring.
+// The 128 threads tile the 64 x 64 scores 16 x 8: thread (ty, tx) owns rows
+// 16 * warp + ty % 4 + 4 * i (i < 4) and keys tx + 8 * j (j < 8), so a warp
+// owns 16 contiguous rows and the 8 lanes that share a row are neighbours.
+// Q, K and V rows are padded to HD + 4 floats: the float4 reads of 8
+// consecutive rows at one d hit distinct banks. Per 4 steps of d a thread
+// makes 12 float4 loads for 128 FMAs; an FMA that reads both operands from
+// shared memory needs 2 loads, and an SM serves one warp-wide load per clock.
+// P goes to shared memory once per tile (its rows are written and read by
+// the same warp, so a __syncwarp orders them); O stays in registers for the
+// whole key loop, each thread owning its 4 rows x HD / 8 columns.
 
 template <int HD>
 struct Fp32Geometry {
-  static constexpr int LD = HD + 1;   // Q, K, V rows: conflict-free column reads
-  static constexpr int LDS = BK32 + 4;  // scores / probabilities
-  static constexpr int LDO = HD + 4;  // output accumulator
-  static constexpr size_t kK = align128(sizeof(float) * BQ * LD);
-  static constexpr size_t kV = kK + align128(sizeof(float) * BK32 * LD);
-  static constexpr size_t kS = kV + align128(sizeof(float) * BK32 * LD);
-  static constexpr size_t kO = kS + align128(sizeof(float) * BQ * LDS);
-  static constexpr size_t kBytes = kO + align128(sizeof(float) * BQ * LDO);
+  static constexpr int LD = HD + 4;     // Q, K, V rows
+  static constexpr int LDP = BK32 + 8;  // probabilities
+  static constexpr int VW = HD >= 32 ? 4 : 2;  // floats per V load; a thread's columns are
+  static constexpr int NV = HD / 8 / VW;       // VW * tx + 8 * VW * c .. + VW, c < NV
+  static constexpr size_t kQ = sizeof(float) * BQ * LD;
+  static constexpr size_t kKV = sizeof(float) * 2 * BK32 * LD;  // two stages
+  static constexpr size_t kBytes = kQ + 2 * kKV + sizeof(float) * BQ * LDP;
 };
 
-// rows [row0, row0+64) of one head's q, k or v, zero past S
-template <int HD>
-__device__ __forceinline__ void load_tile_fp32(float* dst, const float* __restrict__ src,
-                                               int row0, int S, long long row_stride) {
-  constexpr int LD = Fp32Geometry<HD>::LD;
-  constexpr int CPR = HD / 4;
-  for (int i = threadIdx.x; i < 64 * CPR; i += NTHREADS) {
-    const int r = i / CPR;
-    const int c = (i % CPR) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) v = *reinterpret_cast<const float4*>(src + (row0 + r) * row_stride + c);
-    float* d = dst + r * LD + c;
-    d[0] = v.x;
-    d[1] = v.y;
-    d[2] = v.z;
-    d[3] = v.w;
-  }
-}
-
 template <int HD, bool BIAS>
-__global__ void __launch_bounds__(NTHREADS) attention_fp32_kernel(const Args<float> a) {
+__global__ void __launch_bounds__(NTHREADS, 2) attention_fp32_kernel(const Args<float> a) {
   using G = Fp32Geometry<HD>;
+  constexpr int LD = G::LD, LDP = G::LDP, VW = G::VW, NV = G::NV;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = reinterpret_cast<float*>(smem + G::kK);
-  float* Vs = reinterpret_cast<float*>(smem + G::kV);
-  float* Ss = reinterpret_cast<float*>(smem + G::kS);
-  float* Os = reinterpret_cast<float*>(smem + G::kO);
+  float* Ks = Qs + BQ * LD;         // [2][BK32][LD]
+  float* Vs = Ks + 2 * BK32 * LD;   // [2][BK32][LD]
+  float* Ps = Vs + 2 * BK32 * LD;   // [BQ][LDP]
 
   const int S = a.S;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+  const int tx = threadIdx.x % 8;         // key group: keys tx + 8 * j
+  const int row0 = 16 * warp + (threadIdx.x / 8) % 4;  // rows row0 + 4 * i
   const long long in_off = b * a.in_b + h * a.in_h;
+  const float* kb_ = a.k + in_off;
+  const float* vb_ = a.v + in_off;
   const float* brow = BIAS ? a.bias + (long long)b * S : nullptr;
+  const int n_tiles = (S + BK32 - 1) / BK32;
+  // a warp whose rows all lie past S takes part in the loads and barriers only
+  const bool active = q0 + 16 * warp < S;
 
-  load_tile_fp32<HD>(Qs, a.q + in_off, q0, S, a.in_r);
-  for (int i = threadIdx.x; i < BQ * G::LDO; i += NTHREADS) Os[i] = 0.f;
+  load_tile_async<float, HD, BQ>(Qs, a.q + in_off, q0, S, a.in_r);
+  load_tile_async<float, HD, BK32>(Ks, kb_, 0, S, a.in_r);
+  load_tile_async<float, HD, BK32>(Vs, vb_, 0, S, a.in_r);
+  cp_async_commit();
 
-  // running softmax max and sum of this warp's 16 rows (same in every lane)
-  float m_run[16], l_run[16];
+  float o[4][NV][VW];
+  float m_run[4], l_run[4];  // running max; this thread's share of the row sums
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int e = 0; e < VW; ++e) o[i][c][e] = 0.f;
   }
-  const int row0 = warp * 16;
-  for (int k0 = 0; k0 < S; k0 += BK32) {
-    __syncthreads();  // previous tile's K/V fully consumed
-    load_tile_fp32<HD>(Ks, a.k + in_off, k0, S, a.in_r);
-    load_tile_fp32<HD>(Vs, a.v + in_off, k0, S, a.in_r);
-    __syncthreads();
 
-    for (int r = row0; r < row0 + 16; ++r) {
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();  // tile t has landed
+    __syncthreads();     // ... for every thread; and tile t - 1 is consumed
+    if (t + 1 < n_tiles) {
+      const int st = (t + 1) & 1;
+      load_tile_async<float, HD, BK32>(Ks + st * BK32 * LD, kb_, (t + 1) * BK32, S, a.in_r);
+      load_tile_async<float, HD, BK32>(Vs + st * BK32 * LD, vb_, (t + 1) * BK32, S, a.in_r);
+    }
+    cp_async_commit();
+    if (!active) continue;
+
+    const float* Kt = Ks + (t & 1) * BK32 * LD;
+    const float* Vt = Vs + (t & 1) * BK32 * LD;
+    const int k0 = t * BK32;
+    const int kv = min(BK32, S - k0);  // valid keys of this tile
+    float kbias[8];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        float acc = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < HD; ++d) acc = fmaf(Qs[r * G::LD + d], Ks[c * G::LD + d], acc);
-        Ss[r * G::LDS + c] = acc;
+    for (int j = 0; j < 8; ++j)
+      kbias[j] = BIAS && tx + 8 * j < kv ? __ldg(brow + k0 + tx + 8 * j) : 0.f;
+
+    // S = Q K^T: 4 rows x 8 keys per thread, 4 steps of d per round of loads
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      float4 q[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        q[i] = *reinterpret_cast<const float4*>(Qs + (row0 + 4 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 k = *reinterpret_cast<const float4*>(Kt + (tx + 8 * j) * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = fmaf(q[i].x, k.x, s[i][j]);
+          s[i][j] = fmaf(q[i].y, k.y, s[i][j]);
+          s[i][j] = fmaf(q[i].z, k.z, s[i][j]);
+          s[i][j] = fmaf(q[i].w, k.w, s[i][j]);
+        }
       }
     }
-    __syncwarp();
-    const bool ok0 = k0 + lane < S, ok1 = k0 + lane + 32 < S;
-    const float bias0 = BIAS && ok0 ? __ldg(brow + k0 + lane) : 0.f;
-    const float bias1 = BIAS && ok1 ? __ldg(brow + k0 + lane + 32) : 0.f;
+
+    // online softmax per row, reduced over the 8 lanes that share it; P -> shared memory
 #pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = row0 + rr;
-      const float s0 = ok0 ? Ss[r * G::LDS + lane] * a.scale + bias0 : -INFINITY;
-      const float s1 = ok1 ? Ss[r * G::LDS + lane + 32] * a.scale + bias1 : -INFINITY;
-      const float m_new = fmaxf(m_run[rr], warp_max(fmaxf(s0, s1)));
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = tx + 8 * j < kv ? s[i][j] * a.scale + kbias[j] : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m_run[i], mx);
       const float sub = finite_or_zero(m_new);
-      const float alpha = expf(m_run[rr] - sub);  // 0 while nothing was finite before
-      const float p0 = expf(s0 - sub);
-      const float p1 = expf(s1 - sub);
-      m_run[rr] = m_new;
-      l_run[rr] = l_run[rr] * alpha + warp_sum(p0 + p1);
-      Ss[r * G::LDS + lane] = p0;
-      Ss[r * G::LDS + lane + 32] = p1;
-      for (int c = lane; c < HD; c += 32) Os[r * G::LDO + c] *= alpha;
+      const float alpha = expf(m_run[i] - sub);  // 0 while nothing was finite before
+      m_run[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = expf(s[i][j] - sub);
+        sum += p;
+        Ps[(row0 + 4 * i) * LDP + tx + 8 * j] = p;
+      }
+      l_run[i] = l_run[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < NV; ++c)
+#pragma unroll
+        for (int e = 0; e < VW; ++e) o[i][c][e] *= alpha;
     }
     __syncwarp();
-    for (int r = row0; r < row0 + 16; ++r) {
-      for (int c = lane; c < HD; c += 32) {
-        float acc = Os[r * G::LDO + c];
-#pragma unroll 16
-        for (int k = 0; k < BK32; ++k) acc = fmaf(Ss[r * G::LDS + k], Vs[k * G::LD + c], acc);
-        Os[r * G::LDO + c] = acc;
+
+    // O += P V: 4 rows x HD / 8 columns per thread, 4 keys per round of P loads; keys past
+    // kv have zero probability and (past S) zero-filled V rows
+    for (int k4 = 0; k4 < kv; k4 += 4) {
+      float p[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 t4 = *reinterpret_cast<const float4*>(Ps + (row0 + 4 * i) * LDP + k4);
+        p[i][0] = t4.x;
+        p[i][1] = t4.y;
+        p[i][2] = t4.z;
+        p[i][3] = t4.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int c = 0; c < NV; ++c) {
+          float v[VW];
+          const float* vp = Vt + (k4 + kk) * LD + VW * tx + 8 * VW * c;
+          if constexpr (VW == 4) {
+            const float4 t4 = *reinterpret_cast<const float4*>(vp);
+            v[0] = t4.x;
+            v[1] = t4.y;
+            v[2] = t4.z;
+            v[3] = t4.w;
+          } else {
+            const float2 t2 = *reinterpret_cast<const float2*>(vp);
+            v[0] = t2.x;
+            v[1] = t2.y;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < VW; ++e) o[i][c][e] = fmaf(p[i][kk], v[e], o[i][c][e]);
+        }
       }
     }
+    __syncwarp();  // P is rewritten by the next tile
   }
-  __syncwarp();
+  if (!active) return;
+
 #pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    const int q = q0 + row0 + rr;
-    if (q >= S) continue;
-    const float inv = l_run[rr] > 0.f ? 1.f / l_run[rr] : 0.f;  // no finite score: zeros
-    float* dst = a.o + b * a.out_b + h * a.out_h + q * a.out_r;
-    for (int c = lane; c < HD; c += 32) dst[c] = Os[(row0 + rr) * G::LDO + c] * inv;
+  for (int i = 0; i < 4; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l += __shfl_xor_sync(0xffffffffu, l, 4);
+    const int row = q0 + row0 + 4 * i;
+    if (row >= S) continue;
+    const float inv = l > 0.f ? 1.f / l : 0.f;  // no finite score: zeros
+    float* dst = a.o + b * a.out_b + h * a.out_h + row * a.out_r + VW * tx;
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      if constexpr (VW == 4)
+        *reinterpret_cast<float4*>(dst + 8 * VW * c) =
+            make_float4(o[i][c][0] * inv, o[i][c][1] * inv, o[i][c][2] * inv, o[i][c][3] * inv);
+      else
+        *reinterpret_cast<float2*>(dst + 8 * VW * c) =
+            make_float2(o[i][c][0] * inv, o[i][c][1] * inv);
+    }
   }
 }
 
@@ -622,7 +661,6 @@ cudaError_t launch(Kernel kernel, size_t smem, int rows, const Layout& L, int B,
 // if they fill every SM's two block slots; a smaller grid spreads wider over
 // the card in 64-query blocks. A function of the shape alone, never of the layout.
 bool wide_blocks(int B, int S, int H, int sm_count) {
-  if (ATTN_QTILES) return ATTN_QTILES == 2;
   return (long long)B * H * ((S + 127) / 128) >= 2LL * sm_count;
 }
 
@@ -645,15 +683,11 @@ template <bool BIAS>
 int dispatch(const Layout& L, int B, int S, int H, int hd, int is_bf16, float scale,
              int device, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  static int sm_counts[64] = {};  // per device, read once
-  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  if (sm_counts[device] == 0) {
-    e = cudaDeviceGetAttribute(&sm_counts[device], cudaDevAttrMultiProcessorCount, device);
-    if (e != cudaSuccess) return e;
-  }
-  const int sms = sm_counts[device];
+  int sms = 0;  // asked per launch: the runtime answers from its cache, and no state is kept here
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16: e = launch_hd<16, BIAS>(is_bf16, L, B, S, H, scale, sms, st); break;

@@ -1,23 +1,18 @@
-"""Build the attention kernel source several ways and time them side by side.
+"""Time the attention kernel beside an earlier revision of its source and SDPA.
 
 Run from the repository root on a machine with an NVIDIA H100 and ``nvcc``::
 
-    python3 scripts/torch_attention_variants.py [--parent OLD_attention_packed.cu]
-                                                [--only NAME ...] [--fp32]
+    python3 scripts/torch_attention_variants.py [--parent OLD_attention_packed.cu] [--fp32]
 
-``csrc/attention_packed.cu`` has build-time switches (``ATTN_STAGES``,
-``ATTN_QTILES``, ``ATTN_SKIP_PAST_S``, ``ATTN_SKIP_KEY_FRAGMENTS``, ``ATTN_SPLIT_TAIL``,
-``ATTN_NARROW_TAIL``, ``ATTN_SUM_ROUNDED``) whose defaults are what ships. Each variant below turns
-one of them the other way, so that its time beside the default's says what
-that design choice is worth. All variants are compiled together (one ``nvcc``
-each, ``-Xptxas -v``), the registers and spill bytes of every hd = 64 kernel
-instance are printed, and then every variant runs the same bf16 inputs at
-the model's shapes in turns (three rounds, the median of the rounds'
-medians), beside ``scaled_dot_product_attention`` on the same views (a
-yardstick the port never calls) and with its largest error against the plain
-version. ``--parent`` adds an earlier revision of the source (for instance
+Builds ``csrc/attention_packed.cu`` with ``-Xptxas -v`` and prints the
+registers and spill bytes of every hd = 64 kernel instance. ``--parent``
+builds an earlier revision of the source beside it (for instance
 ``git show HEAD~1:ml_depth_pro_video_tpu_torch/csrc/attention_packed.cu``
-written to a file) as one more variant. ``--fp32`` times the fp32 body too.
+written to a file), both ``nvcc`` runs started together. Then each build
+runs the same bf16 inputs at the model's shapes in turns (three rounds, the
+median of the rounds' medians), beside ``scaled_dot_product_attention`` on
+the same views (a yardstick the port never calls) and with its largest error
+against the plain version. ``--fp32`` times the fp32 body too.
 """
 
 from __future__ import annotations
@@ -45,17 +40,6 @@ from ml_depth_pro_video_tpu_torch.ops.attention import (  # noqa: E402
 )
 
 SOURCE = loader.CSRC_DIR / "attention_packed.cu"
-VARIANTS = {  # name -> extra nvcc flags
-    "default": (),
-    "qtiles1": ("-DATTN_QTILES=1",),          # 16 rows per warp everywhere (64-query blocks)
-    "qtiles2": ("-DATTN_QTILES=2",),          # 32 rows per warp everywhere at hd = 64
-    "stages3": ("-DATTN_STAGES=3",),          # a third cp.async stage
-    "noskip": ("-DATTN_SKIP_PAST_S=0",),      # warps past S compute too
-    "keyskip": ("-DATTN_SKIP_KEY_FRAGMENTS=1",),  # the last key tile skips its fragments past S
-    "maskall": ("-DATTN_SPLIT_TAIL=0",),      # the key mask on every tile
-    "sumrounded": ("-DATTN_SUM_ROUNDED=1",),  # row sums of the rounded probabilities
-    "widetail": ("-DATTN_NARROW_TAIL=0",),    # the ragged rest always in a 128-query block
-}
 # (B, S, heads, with a bias): the exact path's two shapes at batch 2, one between, the tiers'
 SHAPES = [(70, 577, 16, False), (2, 577, 16, False), (8, 577, 16, False),
           (70, 433, 16, True), (70, 289, 16, True)]
@@ -84,12 +68,12 @@ def ptxas_table(log: str) -> list[str]:
     return rows
 
 
-def build_all(variants: dict, tmp: Path) -> dict:
+def build_all(sources: dict, tmp: Path) -> dict:
     procs = {}
-    for name, (source, flags) in variants.items():
+    for name, source in sources.items():
         lib = tmp / f"{name}.so"
-        cmd = [loader._nvcc(), *loader.NVCC_FLAGS, "-Xptxas", "-v", *flags, "-shared", "-o",
-               str(lib), str(source)]
+        cmd = [loader._nvcc(), *loader.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-o", str(lib),
+               str(source)]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                              text=True))
     libs = {}
@@ -141,7 +125,6 @@ def median_ms(fn, iters: int) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, help="an earlier revision of the kernel source")
-    ap.add_argument("--only", nargs="*", help="variant names to build (default: all)")
     ap.add_argument("--fp32", action="store_true", help="time the fp32 body as well")
     ns = ap.parse_args()
     if not torch.cuda.is_available():
@@ -150,13 +133,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"[card] {card}")
-    variants = {n: (SOURCE, f) for n, f in VARIANTS.items() if not ns.only or n in ns.only}
+    sources = {"shipped": SOURCE}
     if ns.parent:
-        variants["parent"] = (ns.parent, ())
+        sources["parent"] = ns.parent
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        libs = build_all(variants, Path(tmp))
-        print(f"[build] {len(libs)} variants in parallel: {time.perf_counter() - t0:.1f} s")
+        libs = build_all(sources, Path(tmp))
+        print(f"[build] {len(libs)} sources in parallel: {time.perf_counter() - t0:.1f} s")
         g = torch.Generator(device="cuda").manual_seed(0)
         for b, s, heads, with_bias in SHAPES:
             base = torch.randn((b, s, 3 * heads * HD), generator=g, device="cuda")

@@ -55,7 +55,7 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # first match wins: cuDNN conv kernels contain "gemm" too, so convs come first
 GROUPS = [
     ("K3 biased attention (csrc/attention_packed.cu)",
-     r"attention_(bf16|fp32)_kernel<\d+, true>"),
+     r"attention_(bf16|fp32)_kernel<\d+, true[,>]"),
     ("K1 attention (csrc/attention_packed.cu)", r"attention_(bf16|fp32)_kernel"),
     ("K2 resblock (csrc/resblock.cu)", r"resblock_kernel"),
     ("conv (cuDNN)", r"conv|fprop|dgrad|wgrad|cudnn"),

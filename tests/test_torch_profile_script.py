@@ -28,6 +28,11 @@ def test_busy_in_is_the_clipped_union(intervals, lo, hi, busy):
      "K1 attention (csrc/attention_packed.cu)"),
     ("void (anonymous namespace)::attention_bf16_kernel<64, true>((anonymous namespace)::Args)",
      "K3 biased attention (csrc/attention_packed.cu)"),
+    # the bf16 body's third template argument: 16-row m-tiles per warp
+    ("void (anonymous namespace)::attention_bf16_kernel<64, true, 2>((anonymous namespace)::Args)",
+     "K3 biased attention (csrc/attention_packed.cu)"),
+    ("void (anonymous namespace)::attention_bf16_kernel<64, false, 2>((anonymous namespace)::Args)",
+     "K1 attention (csrc/attention_packed.cu)"),
     ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<float>",
      "sort / scatter / gather (ToMe merge and others)"),
     ("resblock_kernel", "K2 resblock (csrc/resblock.cu)"),
