@@ -20,8 +20,14 @@ Phases (each prints its own lines; any failure exits non-zero):
    never calls) and beside its bound (the larger of its bytes over 3.35 TB/s
    and its operations over the card's peak for their type); the attention
    kernels' entries carry the fp32 (parity mode) reading at the same shape
-   under ``fp32``, and K1's the bf16 one at the image ViT's (2, 577, 3072)
-   under ``small_shape``;
+   under ``fp32``, K1's the bf16 one at the image ViT's (2, 577, 3072)
+   under ``small_shape``, and K2's (2, 96, 96, 256) entry its (2, 48, 48,
+   256) reading there; K2 is also timed beside the plain composition at the
+   192^2 and 384^2 levels that the width gate keeps on the plain path, each
+   K2 line names the tiling the kernel took, and K2's entries carry the
+   profiler's device time of K2 and of the plain composition (whose many
+   launches leave the card waiting on the host) under ``device_ms`` and
+   ``plain_device_ms``; times are medians over runs of back-to-back calls;
 4. slice: a ``DepthVideoRunner`` at the ``large`` preset (ViT-L, 1536^2,
    random weights, bf16, batch 2) runs 1080x1920 uint8 frames through
    ``depth_stream``; outputs are checked and the kernels' launch counts
@@ -87,8 +93,10 @@ from ml_depth_pro_video_tpu_torch.ops.attention import (
     multi_head_attention,
 )
 from ml_depth_pro_video_tpu_torch.ops.resblock import (
+    FUSED_MAX_WIDTH,
     K2,
     fused_residual_block,
+    k2_tile,
     residual_block_reference,
 )
 from ml_depth_pro_video_tpu_torch.ops.resize import resize2d
@@ -107,7 +115,10 @@ K3_SHAPES = [((35 * BATCH, 433, 3072), 16), ((35 * BATCH, 289, 3072), 16),
 # a ViT-L block's attention in (B, H, S, D) at batch 2 and 1, then ragged ones
 K4_SHAPES = [(35 * BATCH, 16, 577, 64), (35, 16, 577, 64), (3, 4, 33, 32), (2, 2, 65, 16)]
 ATTN_BOUNDS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # share of scale, TF32 off
-K2_SHAPES = [(BATCH, 48, 48, 256), (BATCH, 96, 96, 256), (1, 48, 48, 256), (1, 20, 24, 64)]
+# the decoder's K2 levels at BATCH and batch 1, then ragged ones, then the levels the width gate
+# keeps on the plain composition (timed beside it)
+K2_SHAPES = [(BATCH, 48, 48, 256), (BATCH, 96, 96, 256), (1, 48, 48, 256), (1, 20, 24, 64),
+             (BATCH, 9, 7, 24), (BATCH, 192, 192, 256), (BATCH, 384, 384, 256)]
 TIMED_FRAMES = 96  # the fps window: ~6 s at the large preset, after a warm-up stream
 K2_BOUND = 2e-2  # bf16 tap-accumulation band of the JAX package's own test
 PER_FORWARD = {  # kernel launches per forward of the large preset
@@ -137,10 +148,13 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, iters: int = 20, short_ms: float = 0.2, short_iters: int = 100) -> float:
-    """Median wall time of one call on the card, from CUDA events: of
-    ``iters`` calls, or of ``short_iters`` where those read under
-    ``short_ms`` (a ~50 us kernel is noisy under a median of 20)."""
+def median_ms(fn, iters: int = 20, short_ms: float = 0.2, short_iters: int = 100,
+              calls: int = 5) -> float:
+    """Median time of one call on the card, from CUDA events around runs of
+    ``calls`` back-to-back calls (so the host's time to issue a call hides
+    behind the one before, as it does on the model's path): of ``iters``
+    runs, or of ``short_iters`` where those read under ``short_ms`` (a
+    ~50 us kernel is noisy under a median of 20)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -148,15 +162,28 @@ def median_ms(fn, iters: int = 20, short_ms: float = 0.2, short_iters: int = 100
     def once() -> float:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end)
+        return start.elapsed_time(end) / calls
 
     times = [once() for _ in range(iters)]
     if statistics.median(times) < short_ms:
         times = [once() for _ in range(short_iters)]
     return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time of one call: its kernels' own time summed by the profiler
+    over ``calls`` calls, without the gaps where the card waits on the host."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / calls / 1e3
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -345,10 +372,14 @@ def kernels_k4(g) -> dict:
     return report
 
 
+def resblock_flops(b: int, h: int, w: int, c: int) -> float:
+    return 2 * 2.0 * b * h * w * 9 * c * c  # two 3x3 convolutions, C -> C
+
+
 def kernels_k2(g) -> dict:
     report = {}
     for shape in K2_SHAPES:
-        c = shape[-1]
+        b, h, w, c = shape
         x = (torch.randn(shape, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
         w1, w2 = (torch.randn((3, 3, c, c), generator=g, device="cuda") * (9 * c) ** -0.5
                   for _ in range(2))
@@ -357,17 +388,27 @@ def kernels_k2(g) -> dict:
         ref = residual_block_reference(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
-        line = (f"[kernels] K2 resblock bf16 {shape}: max_abs_err={err:.3e} rel={rel:.3e} "
-                f"(bound {K2_BOUND:g})")
+        th, tw = k2_tile(b, h, w)
+        line = (f"[kernels] K2 resblock bf16 {shape} ({th}x{tw} tiles): max_abs_err={err:.3e} "
+                f"rel={rel:.3e} (bound {K2_BOUND:g})")
         if c == 256:
             # two 3x3 convolutions; no single PyTorch call computes the whole block
-            times, suffix = timed(lambda: fused_residual_block(x, w1, b1, w2, b2),
-                                  lambda: residual_block_reference(x, w1, b1, w2, b2), None,
-                                  2 * 2.0 * x.numel() * 9 * c, nbytes(x, w1, b1, w2, b2, got),
-                                  torch.bfloat16)
-            line += suffix
-            if shape[:2] == (BATCH, 96):
-                report = report_entry(err, rel, times, shape, torch.bfloat16)
+            kernel = lambda: fused_residual_block(x, w1, b1, w2, b2)  # noqa: E731
+            plain = lambda: residual_block_reference(x, w1, b1, w2, b2)  # noqa: E731
+            times, suffix = timed(kernel, plain, None, resblock_flops(*shape),
+                                  nbytes(x, w1, b1, w2, b2, got), torch.bfloat16)
+            # the plain composition's launches wait on the host: its device time apart
+            times["device_ms"], times["plain_device_ms"] = device_ms(kernel), device_ms(plain)
+            line += (f"{suffix}; device {times['device_ms']:.3f} ms, plain "
+                     f"{times['plain_device_ms']:.3f} ms")
+            if w > FUSED_MAX_WIDTH:  # the width gate's evidence: K2 against the plain path
+                line += (f"; width gate {FUSED_MAX_WIDTH}: K2 takes "
+                         f"{times['ms'] / times['plain_ms']:.3f}x the plain time, "
+                         f"{times['device_ms'] / times['plain_device_ms']:.3f}x its device time")
+            if shape == (BATCH, 96, 96, 256):
+                report.update(report_entry(err, rel, times, shape, torch.bfloat16))
+            elif shape == (BATCH, 48, 48, 256):
+                report["small_shape"] = report_entry(err, rel, times, shape, torch.bfloat16)
         log(line)
         if not rel < K2_BOUND:
             raise AssertionError(f"K2 {shape}: rel error {rel:.3e} above bound")

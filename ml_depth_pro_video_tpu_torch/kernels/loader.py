@@ -44,7 +44,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 LIBRARY_NAME = "libdepth_pro_kernels.so"
 
-_p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_pi = ctypes.POINTER(ctypes.c_int)
 # C signatures of the exported entry points (pointers and the stream as
 # c_void_p, or ctypes would pass them as 32-bit ints)
 _ATTN_ARGS = (_i, _i, _i, _i, _i, _f, _i, _p)  # B, S, H, hd, is_bf16, scale, device, stream
@@ -52,8 +53,8 @@ _SIGNATURES = {
     "attention_packed_forward": ((_p, _p) + _ATTN_ARGS, _i),
     "attention_packed_bias_forward": ((_p, _p, _p) + _ATTN_ARGS, _i),
     "attention_bhsd_forward": ((_p, _p, _p, _p) + _ATTN_ARGS, _i),
-    "resblock_forward": ((_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p), _i),
-    "resblock_smem_bytes": ((_i,), _ll),
+    "resblock_forward": ((_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p), _i),  # B, H, W, C, device
+    "resblock_tile": ((_i, _i, _i, _i, _pi, _pi), _i),  # B, H, W, device -> rows, columns
 }
 
 # names of the cudaError_t codes a launch can plausibly return

@@ -8,9 +8,11 @@ kernel K2 (``csrc/resblock.cu``) replaces the Pallas kernel
 ``_resblock_pallas``; ``fused_residual_block`` takes the plain version for
 a CPU tensor and launches K2 for a CUDA tensor, or raises.
 ``residual_block`` routes like the JAX package: bf16 square-channel blocks
-at the decoder's small levels (W <= 96, a TPU v5e measurement not yet
-re-tuned on the H100) go through ``fused_residual_block``; everything else
-(fp32 parity mode, the 192^2+ levels) takes the plain composition.
+of at most 256 channels at the decoder's small levels go through
+``fused_residual_block``; everything else (fp32 parity mode, the 192^2+
+levels) takes the plain composition. The width gate W <= 96 is the JAX
+package's TPU v5e measurement, kept on the H100: there K2 is slower than
+the plain composition at 192^2 and 384^2 (PERF.md, PR 5).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..kernels.loader import Kernel, load_library
+from ..kernels.loader import Kernel, KernelLaunchError, load_library
 from .conv import conv2d
 
 K2 = Kernel(
@@ -31,13 +33,23 @@ K2 = Kernel(
 )
 
 FUSED_MAX_WIDTH = 96
-_SMEM_LIMIT = 227 * 1024  # dynamic shared memory one Hopper block may use
+K2_MAX_CHANNELS = 256  # one pass of K2's 8 warps x 32 output channels
 
 
 def residual_block_reference(x, w1, b1, w2, b2):
     h = conv2d(F.relu(x), w1, b1, padding=1)
     h = conv2d(F.relu(h), w2, b2, padding=1)
     return x + h
+
+
+def k2_tile(bsz: int, h: int, w: int, device: int = 0) -> tuple[int, int]:
+    """The output tile (rows, columns) K2 takes for a (bsz, h, w, C) input on
+    CUDA device ``device``: 10x8 where those tiles give every SM a block, else 6x6."""
+    th, tw = ctypes.c_int(), ctypes.c_int()
+    err = load_library().resblock_tile(bsz, h, w, device, ctypes.byref(th), ctypes.byref(tw))
+    if err:
+        raise KernelLaunchError(f"resblock_tile returned cudaError {err}")
+    return th.value, tw.value
 
 
 def _resblock_cuda(x, w1, b1, w2, b2):
@@ -55,29 +67,24 @@ def _resblock_cuda(x, w1, b1, w2, b2):
                          f"{tuple(b2.shape)}")
     if any(t.device != x.device for t in (w1, b1, w2, b2)):
         raise ValueError("resblock kernel needs x, weights and biases on one device")
-    if c % 8:
-        raise ValueError(f"resblock kernel needs channels % 8 == 0, got {c}")
-    cp = (c + 15) // 16 * 16
-    if load_library().resblock_smem_bytes(cp) > _SMEM_LIMIT:
-        raise ValueError(f"resblock kernel: {c} channels exceed the shared-memory budget")
+    if c % 8 or c > K2_MAX_CHANNELS:
+        raise ValueError(f"resblock kernel needs channels % 8 == 0 and <= {K2_MAX_CHANNELS}, "
+                         f"got {c}")
     if x.numel() == 0:
         return x.clone()
     x = x.contiguous()
-    if x.data_ptr() % 16:
-        raise ValueError("resblock kernel needs a 16-byte aligned x")
-    pad = cp - c
-
-    def weight(wt):  # (3, 3, C, C) -> (9, Cp, Cp) bf16, zero-padded
-        return F.pad(wt.to(torch.bfloat16).reshape(9, c, c), (0, pad, 0, pad)).contiguous()
-
-    def bias(bt):  # bias rounded to bf16 as the TPU kernel reads it, then fp32
-        return F.pad(bt.to(torch.bfloat16).float(), (0, pad)).contiguous()
-
-    args = [weight(w1), bias(b1), weight(w2), bias(b2)]
+    # casts only: (3, 3, C, C) -> (9, C, C) is a view; the kernel rounds the
+    # fp32 biases to bf16 itself, as the TPU kernel reads them
+    ws = [t.to(torch.bfloat16).contiguous().view(9, c, c) for t in (w1, w2)]
+    bs = [t.float().contiguous() for t in (b1, b2)]
+    if x.data_ptr() % 16 or any(t.data_ptr() % 16 for t in ws) or any(
+            t.data_ptr() % 8 for t in bs):
+        raise ValueError("resblock kernel needs 16-byte aligned x and weights, 8-byte aligned "
+                         "biases")
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptr = [ctypes.c_void_p(t.data_ptr()) for t in (x, *args, out)]
-    K2.launch(*ptr, bsz, h, w, c, cp, x.device.index, ctypes.c_void_p(stream))
+    ptr = [ctypes.c_void_p(t.data_ptr()) for t in (x, ws[0], bs[0], ws[1], bs[1], out)]
+    K2.launch(*ptr, bsz, h, w, c, x.device.index, ctypes.c_void_p(stream))
     return out
 
 
@@ -113,6 +120,6 @@ def residual_block(x, w1, b1, w2, b2):
     """x + conv2(relu(conv1(relu(x)))), convs 3x3 pad 1."""
     c = w1.shape[2]
     if (x.dtype == torch.bfloat16 and c == w1.shape[3] == x.shape[-1]
-            and x.shape[2] <= FUSED_MAX_WIDTH):
+            and c <= K2_MAX_CHANNELS and x.shape[2] <= FUSED_MAX_WIDTH):
         return fused_residual_block(x, w1, b1, w2, b2)
     return residual_block_reference(x, w1, b1, w2, b2)

@@ -50,8 +50,9 @@ _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _INSTANCE = re.compile(r"attention_(bf16|fp32)_kernelILi(\d+)ELb([01])E(?:Li(\d)E)?")
 
 
-def ptxas_table(log: str) -> list[str]:
-    """One line per kernel instance from ``nvcc -Xptxas -v`` output."""
+def ptxas_rows(log: str) -> list[tuple[str, int, int, int]]:
+    """(mangled entry, registers, spill store bytes, spill load bytes) per
+    kernel instance from ``nvcc -Xptxas -v`` output."""
     rows, entry, spill = [], None, None
     for line in log.splitlines():
         if m := _ENTRY.search(line):
@@ -59,16 +60,24 @@ def ptxas_table(log: str) -> list[str]:
         elif m := _SPILL.search(line):
             spill = m.groups()
         elif (m := _USED.search(line)) and entry:
-            inst = _INSTANCE.search(entry)
-            if inst:
-                kind, hd, bias, mt = inst.groups()
-                rows.append(f"{kind} hd={hd} bias={bias}" + (f" m-tiles={mt}" if mt else "") +
-                            f": {m.group(1)} registers, spill stores/loads {spill[0]}/{spill[1]} B")
+            rows.append((entry, int(m.group(1)), int(spill[0]), int(spill[1])))
             entry = None
     return rows
 
 
-def build_all(sources: dict, tmp: Path) -> dict:
+def attention_instance(entry: str) -> str | None:
+    """An attention kernel instance's name, where it is one of hd = 64."""
+    inst = _INSTANCE.search(entry)
+    if not inst or inst.group(2) != str(HD):
+        return None
+    kind, hd, bias, mt = inst.groups()
+    return f"{kind} hd={hd} bias={bias}" + (f" m-tiles={mt}" if mt else "")
+
+
+def build_all(sources: dict, tmp: Path, describe=attention_instance) -> dict:
+    """Build each source into its own library, all ``nvcc`` runs started
+    together; print the registers and spills of every kernel instance that
+    ``describe`` names. Returns {name: CDLL}, its entry points not yet typed."""
     procs = {}
     for name, source in sources.items():
         lib = tmp / f"{name}.so"
@@ -82,14 +91,10 @@ def build_all(sources: dict, tmp: Path) -> dict:
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {name}:\n{out}")
         print(f"[ptxas] {name}:")
-        for row in ptxas_table(out):
-            if " hd=64 " in row:
-                print(f"[ptxas]   {row}")
-        cdll = ctypes.CDLL(str(lib))
-        for sym in ("attention_packed_forward", "attention_packed_bias_forward"):
-            fn = getattr(cdll, sym)
-            fn.argtypes, fn.restype = loader._SIGNATURES[sym]
-        libs[name] = cdll
+        for entry, regs, stores, loads in ptxas_rows(out):
+            if (inst := describe(entry)) is not None:
+                print(f"[ptxas]   {inst}: {regs} registers, spill stores/loads {stores}/{loads} B")
+        libs[name] = ctypes.CDLL(str(lib))
     return libs
 
 
@@ -139,6 +144,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         libs = build_all(sources, Path(tmp))
+        for lib in libs.values():
+            for sym in ("attention_packed_forward", "attention_packed_bias_forward"):
+                fn = getattr(lib, sym)
+                fn.argtypes, fn.restype = loader._SIGNATURES[sym]
         print(f"[build] {len(libs)} sources in parallel: {time.perf_counter() - t0:.1f} s")
         g = torch.Generator(device="cuda").manual_seed(0)
         for b, s, heads, with_bias in SHAPES:

@@ -35,6 +35,22 @@ def test_attention_bound_at_the_documented_shapes(b, s, with_bias, dtype, want_m
     assert round(ms, 4) == want_ms
 
 
+# K2 at the decoder's levels at batch 2: 48^2 and 96^2 run K2, 192^2 and 384^2 are the width
+# gate's evidence; bf16 x and out, fp32 weights and biases as chip_smoke makes them
+@pytest.mark.parametrize("hw,want_ms", [(48, 0.0110), (96, 0.0440), (192, 0.1759),
+                                        (384, 0.7035)])
+def test_resblock_bound_at_the_documented_shapes(hw, want_ms):
+    b, c = 2, 256
+    x, out = (torch.empty((b, hw, hw, c), dtype=torch.bfloat16, device="meta") for _ in range(2))
+    w = torch.empty((3, 3, c, c), device="meta")
+    bias = torch.empty((c,), device="meta")
+    flops = chip_smoke.resblock_flops(b, hw, hw, c)
+    assert flops == 2 * 2.0 * b * hw * hw * 9 * c * c
+    ms, by = chip_smoke.bound(flops, chip_smoke.nbytes(x, w, bias, w, bias, out), torch.bfloat16)
+    assert by == "operations"
+    assert round(ms, 4) == want_ms
+
+
 def test_unpacked_attention_moves_the_same_bytes_as_packed():
     """K4 reads q, k, v and writes out of (B, H, S, D): K1's bytes, so K1's bound."""
     qkvo = [torch.empty((70, 16, 577, 64), dtype=torch.bfloat16, device="meta")] * 4
@@ -42,7 +58,8 @@ def test_unpacked_attention_moves_the_same_bytes_as_packed():
 
 
 def test_median_takes_more_events_for_a_short_kernel(monkeypatch):
-    """Under ``short_ms`` the median is over ``short_iters`` events, not ``iters``."""
+    """Under ``short_ms`` the median is over ``short_iters`` event pairs, not
+    ``iters``; each pair brackets ``calls`` back-to-back calls."""
     made = []
 
     class Event:
@@ -61,10 +78,10 @@ def test_median_takes_more_events_for_a_short_kernel(monkeypatch):
     monkeypatch.setattr(torch.cuda, "Event", Event)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     calls = []
-    for ms, events in ((0.05, 2 * (20 + 100)), (0.5, 2 * 20)):
-        Event.ms = ms
+    for ms, events in ((0.05, 2 * (20 + 100)), (0.5, 2 * 20)):  # per call
+        Event.ms = 5 * ms
         made.clear()
         calls.clear()
-        assert chip_smoke.median_ms(lambda: calls.append(1)) == ms
+        assert chip_smoke.median_ms(lambda: calls.append(1), calls=5) == pytest.approx(ms)
         assert len(made) == events
-        assert len(calls) == 3 + events // 2  # three warm-up calls
+        assert len(calls) == 3 + 5 * events // 2  # three warm-up calls

@@ -175,9 +175,7 @@ def test_unpacked_kernel_equals_packed_kernel(cuda, dtype):
     assert torch.equal(packed, unpacked)
 
 
-@pytest.mark.parametrize("shape", [(1, 48, 48, 256), (2, 48, 48, 256), (2, 96, 96, 256),
-                                   (1, 20, 24, 64), (1, 9, 7, 24)])
-def test_resblock_kernel_matches_plain(cuda, shape):
+def _resblock_case(cuda, shape):
     c = shape[-1]
     x = (torch.randn(shape, generator=cuda, device="cuda") * 0.5).bfloat16()
     w1, w2 = (torch.randn((3, 3, c, c), generator=cuda, device="cuda") * (9 * c) ** -0.5
@@ -187,11 +185,54 @@ def test_resblock_kernel_matches_plain(cuda, shape):
     got = R.fused_residual_block(x, w1, b1, w2, b2)
     torch.cuda.synchronize()
     assert R.K2.launches == before + 1
-    assert _rel(got, R.residual_block_reference(x, w1, b1, w2, b2)) < 2e-2
+    assert got.shape == shape and got.dtype == torch.bfloat16
+    return _rel(got, R.residual_block_reference(x, w1, b1, w2, b2))
+
+
+@pytest.mark.parametrize("shape", [(1, 48, 48, 256), (2, 48, 48, 256), (2, 96, 96, 256),
+                                   (1, 20, 24, 64), (1, 9, 7, 24)])
+def test_resblock_kernel_matches_plain(cuda, shape):
+    assert _resblock_case(cuda, shape) < 2e-2
+
+
+def _wide_tiles(batch, h, w):
+    """Whether K2 takes its wide 10x8 tiles for this shape on this card (6x6
+    else): csrc/resblock.cu::wide_tiles."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return batch * -(-h // 10) * -(-w // 8) >= sms
+
+
+# H and W that are multiples of neither tile side, a single pixel and a single row, at every
+# width the kernel's warps split differently (24 pads to 64 channels: warp 1 computes zeros,
+# warps 2-7 are idle)
+@pytest.mark.parametrize("hw", [(9, 7), (17, 23), (1, 1), (1, 50)])
+@pytest.mark.parametrize("c", [24, 64, 128, 256])
+def test_resblock_kernel_tile_edges(cuda, hw, c):
+    assert not _wide_tiles(2, *hw)
+    assert _resblock_case(cuda, (2, *hw, c)) < 2e-2
+
+
+# both tilings of the dispatch: (2, 48, 48) gives 60 10x8 tiles and takes 6x6 ones, the others
+# give at least 168 10x8 tiles (ragged at 61 = 6 * 10 + 1, 57, 101 and 90) and take them, on a
+# card of up to 168 SMs
+@pytest.mark.parametrize("shape,wide", [((2, 48, 48, 256), False), ((1, 48, 48, 256), False),
+                                        ((2, 96, 96, 256), True), ((3, 61, 57, 256), True),
+                                        ((2, 101, 90, 128), True), ((2, 101, 90, 24), True)])
+def test_resblock_kernel_tilings(cuda, shape, wide):
+    assert _wide_tiles(*shape[:3]) == wide
+    assert R.k2_tile(*shape[:3]) == ((10, 8) if wide else (6, 6))
+    assert _resblock_case(cuda, shape) < 2e-2
 
 
 def test_resblock_kernel_raises_on_odd_channels(cuda):
     c = 12
+    w, b = torch.zeros(3, 3, c, c, device="cuda"), torch.zeros(c, device="cuda")
+    with pytest.raises(ValueError):
+        R.fused_residual_block(torch.zeros(1, 8, 8, c, device="cuda").bfloat16(), w, b, w, b)
+
+
+def test_resblock_kernel_raises_past_its_widest_channels(cuda):
+    c = R.K2_MAX_CHANNELS + 8
     w, b = torch.zeros(3, 3, c, c, device="cuda"), torch.zeros(c, device="cuda")
     with pytest.raises(ValueError):
         R.fused_residual_block(torch.zeros(1, 8, 8, c, device="cuda").bfloat16(), w, b, w, b)

@@ -291,16 +291,18 @@ def test_resblock_plain_fp32_matches_jax_xla(shape):
 
 def test_residual_block_routes_like_jax(monkeypatch):
     """bf16 square blocks at W <= 96 take the fused wrapper; fp32 and wider
-    levels take the plain composition (as the JAX package's gate)."""
+    levels take the plain composition (as the JAX package's gate: on the H100
+    K2 did not beat the plain composition by 10% at 192^2, PERF.md), and so do
+    blocks wider than K2's 256 channels."""
     calls = []
     monkeypatch.setattr(tres, "fused_residual_block",
                         lambda *a: calls.append(a[0].shape) or tres.residual_block_reference(*a))
-    c = 16
-    w, b = torch.randn(3, 3, c, c) * 0.1, torch.randn(c) * 0.1
-    for shape, dtype in [((1, 8, 96, c), torch.bfloat16), ((1, 8, 97, c), torch.bfloat16),
-                         ((1, 8, 8, c), torch.float32)]:
-        tres.residual_block(torch.randn(shape).to(dtype), w, b, w, b)
-    assert calls == [(1, 8, 96, c)]
+    for c in (16, 264):
+        w, b = torch.randn(3, 3, c, c) * 0.1, torch.randn(c) * 0.1
+        for shape, dtype in [((1, 8, 96, c), torch.bfloat16), ((1, 8, 97, c), torch.bfloat16),
+                             ((1, 8, 8, c), torch.float32)]:
+            tres.residual_block(torch.randn(shape).to(dtype), w, b, w, b)
+    assert calls == [(1, 8, 96, 16)]
 
 
 def test_fused_residual_block_on_cpu_is_plain_and_differentiable():
@@ -320,6 +322,7 @@ def test_fused_residual_block_on_cpu_is_plain_and_differentiable():
     ((1, 4, 4, 16), torch.float32, "cpu", 16),    # not bf16
     ((1, 4, 4, 16), torch.bfloat16, "meta", 16),  # weights on another device
     ((1, 4, 4, 16), torch.bfloat16, "cpu", 8),    # bias of the wrong length
+    ((1, 4, 4, 264), torch.bfloat16, "cpu", 264),  # wider than one pass of K2's warps
 ])
 def test_resblock_kernel_wrapper_rejects_what_k2_does_not_take(shape, dtype, w_device, b_len):
     c = shape[-1]
