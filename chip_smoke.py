@@ -33,6 +33,18 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``depth_stream``; outputs are checked and the kernels' launch counts
    must match 72 K1 and 3 K2 launches per forward (no K3); then frames/s
    over a 96-frame window after a warm-up stream;
+4a. maps: the runner with ``temporal_smooth=0.8`` and ``fetch_pack="u16"``
+   (large, bf16, batch 2) streams 8 frames of 1080x1920 (one base frame plus
+   integer noise in [-3, 3], so most pixels are static and the smoother
+   blends them) with 72 K1 and 3 K2 launches per forward; the result is held
+   against the exact slice's runner (both options off) on the same frames
+   followed by the host twin of the smoother, frame by frame: within
+   ``max_rel_error() + 1e-5`` on at least 99.99% of pixels. Then the times
+   of the pack and the smoother per batch of 2 (CUDA events and the
+   profiler's device time), the device-to-host copy of the fp32 depth and of
+   the u16 codes, the host unpack per frame, and frames/s over 96 frames with
+   both options beside the exact slice's (``scripts/torch_slice_profile.py
+   --post-ops`` splits that cost between the two options);
 4b. speed slices: the same at ``speed="balanced"`` and ``speed="fast"`` (ToMe
    token merging), where each forward must launch 50 K1, 22 K3 and 3 K2;
 4c. the unpacked-attention entry point ``multi_head_attention`` at a ViT-L
@@ -42,7 +54,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    path (plain versions) on a small non-square frame;
 5b. speed-tier accuracy: the checked-in ToMe proxy weights
    (``tests/fixtures/tome_proxy_weights.npz``) at merge ratios 0.25 and 0.5,
-   fp32 on the card (K1, K3) against the CPU path.
+   fp32 on the card (K1, K3) against the CPU path;
+6. maps CLI: ``depth-pro-maps-torch`` over 4 PNG frames of 1080x1920
+   (``--save_npz --packed_fetch --colormap gray16 --batch_size 2``, 72 K1 and
+   3 K2 launches per forward), then ``depth-pro-smooth-torch`` over its npz
+   files; file counts, shapes and finiteness are checked (needs Pillow).
 
 Before each path's run every launch count is set to 0 and it is read just
 after; launches made to compare a kernel with its plain version do not
@@ -55,6 +71,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -65,6 +82,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ml_depth_pro_video_tpu_torch.cli import generate_depth_maps, smooth_depth
 from ml_depth_pro_video_tpu_torch.ckpt.params import (
     from_numpy_tree,
     init_depth_pro,
@@ -100,7 +118,9 @@ from ml_depth_pro_video_tpu_torch.ops.resblock import (
     residual_block_reference,
 )
 from ml_depth_pro_video_tpu_torch.ops.resize import resize2d
+from ml_depth_pro_video_tpu_torch.video.pack import max_rel_error, pack_depth_u16, unpack_depth_u16
 from ml_depth_pro_video_tpu_torch.video.runner import DepthVideoRunner
+from ml_depth_pro_video_tpu_torch.video.temporal import _update_core_np, smooth_batch
 
 SEED = 0
 BATCH = 2  # the slice's batch size: K1 sees (35*BATCH, 577, 3072) and (BATCH, 577, 3072)
@@ -134,6 +154,11 @@ BF16_MAX_DEV = 0.05
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside them, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+MAPS_FRAMES = 8  # the maps phase's stream: 4 forwards at BATCH
+SMOOTH_ALPHA = 0.8
+MAPS_SLACK = 1e-5  # fp32 log/exp and the device's reduction order, beside the packing bound
+MAPS_SHARE = 0.9999  # of pixels within the bound; the rest are static-gate flips at tau
+MAPS_CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_maps"  # ignored by git
 PROXY = Path(__file__).resolve().parent / "tests" / "fixtures" / "tome_proxy_weights.npz"
 PROXY_RATIOS = (0.25, 0.5)
 
@@ -445,11 +470,21 @@ def check_results(results, n_frames: int, tag: str) -> None:
         f"{[round(r['focallength_px'], 2) for r in results]}")
 
 
+def frames_per_s(runner: DepthVideoRunner, window: list, batch_size: int) -> float:
+    """Frames/s of ``runner.depth_stream`` over ``window``, after a warm-up stream."""
+    sum(1 for _ in runner.depth_stream(window[:4 * batch_size]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(1 for _ in runner.depth_stream(window))
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
 def run_slice(speed: str, n_frames: int = 4, batch_size: int = BATCH, timed: int = TIMED_FRAMES):
     """One path: a large-preset runner at ``speed`` streams ``n_frames``
     frames with the launch counts set to 0 before and read after; then
     frames/s over ``timed`` frames after a warm-up stream. Returns
-    (runner, launches)."""
+    (runner, launches, frames/s)."""
     tag = "slice" if speed == "exact" else f"slice {speed}"
     runner = DepthVideoRunner(cfg=model_preset("large"), precision="bf16",
                               batch_size=batch_size, rng_seed=SEED, speed=speed, device="cuda")
@@ -469,20 +504,148 @@ def run_slice(speed: str, n_frames: int = 4, batch_size: int = BATCH, timed: int
         raise AssertionError(f"{tag}: kernel launches {launches} != {want} "
                              f"({PER_FORWARD[speed]} per forward x {forwards})")
 
-    # fps over a window of many batches, after a warm-up stream (the stream
-    # above warmed up the same runner); 8 distinct frames, cycled
+    # fps over a window of many batches, after a warm-up stream; 8 distinct frames, cycled
     pool = [rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8) for _ in range(8)]
-    window = [pool[i % len(pool)] for i in range(timed)]
-    sum(1 for _ in runner.depth_stream(window[:4 * batch_size]))
+    fps = frames_per_s(runner, [pool[i % len(pool)] for i in range(timed)], batch_size)
+    log(f"[{tag}] {fps} frames/s over {timed} frames of 1080x1920 (batch {batch_size}, bf16, "
+        f"speed {speed}, frames in memory, after a warm-up stream) on {card()}")
+    return runner, launches, fps
+
+
+def noisy_frames(n: int, rng: np.random.Generator) -> list:
+    """One base 1080x1920 frame plus integer noise in [-3, 3] per frame: a
+    static scene, so the smoother has pixels to blend."""
+    base = rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    return [np.clip(base.astype(np.int16) + rng.integers(-3, 4, base.shape), 0, 255)
+            .astype(np.uint8) for _ in range(n)]
+
+
+def outside_bound(got: np.ndarray, want: np.ndarray, bound: float) -> tuple[float, float]:
+    """(share of pixels whose relative error to ``want`` exceeds ``bound``,
+    the largest relative error)."""
+    rel = np.abs(got.astype(np.float64) - want) / np.abs(want)
+    return float(np.mean(rel > bound)), float(rel.max())
+
+
+def smoothed_reference(depths: list) -> tuple[list, float]:
+    """The host twin of the smoother over ``depths`` in order, the first frame
+    seeding the state; and the share of pixels the static gate blended (where
+    the output at alpha 0.8 differs from the aligned frame, alpha 0)."""
+    state, out, blended = depths[0], [depths[0]], []
+    for d in depths[1:]:
+        new, _ = _update_core_np(state, d, alpha=SMOOTH_ALPHA, tau=0.05, align=True)
+        aligned, _ = _update_core_np(state, d, alpha=0.0, tau=0.05, align=True)
+        blended.append(np.mean(new != aligned))
+        state = new
+        out.append(new)
+    return out, float(np.mean(blended))
+
+
+def phase_maps(plain: DepthVideoRunner, exact_fps: float) -> dict:
+    """The runner with temporal smoothing and the packed fetch on: launches,
+    agreement with the exact runner's depth smoothed on the host, the post-ops'
+    times and frames/s."""
+    runner = DepthVideoRunner(cfg=model_preset("large"), precision="bf16", batch_size=BATCH,
+                              rng_seed=SEED, temporal_smooth=SMOOTH_ALPHA, fetch_pack="u16",
+                              device="cuda")
+    frames = noisy_frames(MAPS_FRAMES, np.random.default_rng(SEED + 4))
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    n = sum(1 for _ in runner.depth_stream(window))
+    reset_launches()
+    results = list(runner.depth_stream(frames))
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    log(f"[{tag}] {n / wall} frames/s over {n} frames of 1080x1920 in {wall:.3f} s "
-        f"(batch {batch_size}, bf16, speed {speed}, frames in memory, after a warm-up stream) "
-        f"on {card()}")
-    return runner, launches
+    launches = read_launches()
+    forwards = math.ceil(MAPS_FRAMES / BATCH)
+    log(f"[maps] large preset, bf16, batch {BATCH}, temporal_smooth {SMOOTH_ALPHA}, fetch_pack "
+        f"u16: {len(results)} frames, {forwards} forwards, launches {launches}")
+    check_results(results, MAPS_FRAMES, "maps")
+    want = {name: n * forwards for name, n in PER_FORWARD["exact"].items()}
+    if launches != want:
+        raise AssertionError(f"maps: kernel launches {launches} != {want}")
+
+    ref, blended = smoothed_reference([r["depth"] for r in plain.depth_stream(frames)])
+    bound = max_rel_error() + MAPS_SLACK
+    share, worst = outside_bound(np.stack([r["depth"] for r in results]), np.stack(ref), bound)
+    log(f"[maps] smoothed u16 depth against the exact runner's depth smoothed by the host twin: "
+        f"{share:.3e} of pixels above {bound:.4e} relative error (fail above "
+        f"{1 - MAPS_SHARE:.0e}), largest {worst:.3e}; the static gate blended {blended:.4f} of "
+        f"the pixels of frames 2-{MAPS_FRAMES}")
+    if share > 1 - MAPS_SHARE:
+        raise AssertionError(f"maps: {share:.3e} of pixels outside {bound:.4e}")
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    depth = 1.0 + 9.0 * torch.rand((BATCH, 1080, 1920), generator=g, device="cuda")
+    state = depth[0] * 1.01
+    pack = lambda: pack_depth_u16(depth)  # noqa: E731
+    smooth = lambda: smooth_batch(state, depth, BATCH, alpha=SMOOTH_ALPHA)  # noqa: E731
+    pack_ms, smooth_ms = median_ms(pack), median_ms(smooth)
+    # back-to-back calls of these small ops wait on the host's launches: device time apart
+    pack_dev, smooth_dev = device_ms(pack), device_ms(smooth)
+    # the runner's fetch: a pinned copy of the fp32 depth, or of the u16 codes and two (B,) vectors
+    packed = pack_depth_u16(depth)
+    fp32_host = torch.empty(depth.shape, dtype=depth.dtype, pin_memory=True)
+    u16_host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in packed]
+    fetch_fp32_ms = median_ms(lambda: fp32_host.copy_(depth, non_blocking=True))
+    fetch_u16_ms = median_ms(lambda: [h.copy_(t, non_blocking=True)
+                                      for h, t in zip(u16_host, packed)])
+    u, lmin, lscale = (h.numpy() for h in u16_host)
+    unpack = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        unpack_depth_u16(u[:1], lmin[:1], lscale[:1])
+        unpack.append((time.perf_counter() - t0) * 1e3)
+    # the pack reads the fp32 depth once and writes the u16 codes and two (B,) vectors
+    pack_bound = (nbytes(depth) + nbytes(*packed)) / PEAK_BYTES * 1e3
+    log(f"[maps] per batch of {BATCH} at 1080x1920 (CUDA events over back-to-back calls / the "
+        f"profiler's device time): pack_depth_u16 {pack_ms:.4f} / {pack_dev:.4f} ms (bytes "
+        f"bound {pack_bound:.4f} ms), smooth_batch {smooth_ms:.4f} / {smooth_dev:.4f} ms; "
+        f"device-to-host copy into pinned memory (CUDA events): fp32 depth {fetch_fp32_ms:.4f} ms "
+        f"({nbytes(depth) / fetch_fp32_ms / 1e6:.2f} GB/s), u16 codes and two vectors "
+        f"{fetch_u16_ms:.4f} ms; host unpack {statistics.median(unpack):.3f} ms per frame "
+        f"(median of 10) on {card()}")
+    window = [frames[i % len(frames)] for i in range(TIMED_FRAMES)]
+    fps = frames_per_s(runner, window, BATCH)
+    log(f"[maps] {fps} frames/s over {TIMED_FRAMES} frames (batch {BATCH}, bf16) with both "
+        f"options, beside the exact slice's {exact_fps}; on {card()}")
+    return launches
+
+
+def phase_maps_cli() -> dict:
+    """``depth-pro-maps-torch`` over a directory of 4 PNG frames, then
+    ``depth-pro-smooth-torch`` over the npz files it wrote."""
+    from PIL import Image
+
+    shutil.rmtree(MAPS_CLI_DIR, ignore_errors=True)
+    frames, maps, smoothed = (MAPS_CLI_DIR / name for name in ("frames", "maps", "smoothed"))
+    frames.mkdir(parents=True)
+    for i, frame in enumerate(noisy_frames(4, np.random.default_rng(SEED + 6))):
+        Image.fromarray(frame).save(frames / f"frame_{i:03d}.png")
+    torch.cuda.synchronize()
+    reset_launches()
+    generate_depth_maps.main([str(frames), "-o", str(maps), "--save_npz", "--packed_fetch",
+                              "--colormap", "gray16", "--batch_size", str(BATCH),
+                              "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    smooth_depth.main([str(maps), "--pattern", "*_depth.npz", "-o", str(smoothed),
+                       "--device", "cuda"])
+    pngs, npzs = sorted(maps.glob("*_depth.png")), sorted(maps.glob("*_depth.npz"))
+    outs = sorted(smoothed.glob("*_depth.npz"))
+    want = {name: n * 2 for name, n in PER_FORWARD["exact"].items()}
+    if launches != want or not len(pngs) == len(npzs) == len(outs) == 4:
+        raise AssertionError(f"maps CLI: launches {launches} (want {want}), {len(pngs)} PNGs, "
+                             f"{len(npzs)} npz, {len(outs)} smoothed")
+    for png, npz, out in zip(pngs, npzs, outs):
+        img = np.asarray(Image.open(png))
+        depth, smooth = np.load(npz)["depth"], np.load(out)["depth"]
+        if img.shape != (1080, 1920) or img.dtype != np.uint16 or any(
+                d.shape != (1080, 1920) or not np.isfinite(d).all() for d in (depth, smooth)):
+            raise AssertionError(f"maps CLI: {png.name} {img.shape} {img.dtype}, depth "
+                                 f"{depth.shape}, smoothed {smooth.shape}, finite "
+                                 f"{np.isfinite(depth).all()} / {np.isfinite(smooth).all()}")
+    log(f"[maps cli] depth-pro-maps-torch wrote 4 gray16 PNGs (1080x1920 uint16) and 4 npz "
+        f"(launches {launches}); depth-pro-smooth-torch wrote 4 smoothed npz, all finite")
+    shutil.rmtree(MAPS_CLI_DIR)
+    return launches
 
 
 def phase_unpacked_entry() -> dict:
@@ -596,15 +759,16 @@ def main() -> int:
     device = phase_device()
     phase_build()
     report = phase_kernels()
-    runner, exact = run_slice("exact")
+    runner, exact, exact_fps = run_slice("exact")
     phase_accuracy(runner)
+    paths = {"exact": exact, "maps": phase_maps(runner, exact_fps)}
     del runner
-    paths = {"exact": exact}
     for speed in ("balanced", "fast"):
-        runner, paths[speed] = run_slice(speed)
+        runner, paths[speed], _ = run_slice(speed)
         del runner
     paths["multi_head_attention"] = phase_unpacked_entry()
     phase_speed_accuracy()
+    paths["maps_cli"] = phase_maps_cli()  # last: its decode pool's processes come and go
     kernels = []
     for key, k in KERNELS.items():
         by_path = {name: counts[key] for name, counts in paths.items()}

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ckpt.convert import convert_depth_pro
 from ..ckpt.params import ParamTree, from_numpy_tree, init_depth_pro, load_params
 from ..core.precision import Precision, disable_tf32, resolve_device, resolve_precision
 from ..ops.conv import conv2d, conv_transpose2x2, depth_to_space2x2, fold_deconv2x2_conv3x3, linear
@@ -401,15 +402,15 @@ class DepthProModel(nn.Module):
 
 
 def load_checkpoint(cfg: DepthProConfig, device="cpu") -> dict | None:
-    """Params for ``cfg.checkpoint_uri`` (a flat npz from the JAX package's
-    converter) on ``device``, or None when there is no such file."""
+    """Params for ``cfg.checkpoint_uri`` on ``device``, or None when there is
+    no such file. Takes a converted flat npz (``ckpt/convert.py::save_params``)
+    or a reference ``.pt`` / ``.pth`` state dict, converted on the fly."""
     uri = cfg.checkpoint_uri
     if uri is None or not os.path.exists(uri):
         return None
-    if not uri.endswith(".npz"):
-        raise NotImplementedError(
-            f"{uri}: the PyTorch port loads converted .npz checkpoints only; convert a "
-            "reference .pt with depth-pro-convert first")
+    if uri.endswith((".pt", ".pth")):
+        sd = torch.load(uri, map_location="cpu", weights_only=True)
+        return from_numpy_tree(convert_depth_pro(sd, cfg), device)
     return from_numpy_tree(load_params(uri), device)
 
 

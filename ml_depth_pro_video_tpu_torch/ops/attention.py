@@ -14,8 +14,11 @@ body read through per-tensor strides) replace the Pallas kernels:
 - K4 ``_flash_attention``: separate q, k, v of shape (B, H, S, D).
 
 Each wrapper takes its plain PyTorch version for a CPU tensor and launches
-its kernel for a CUDA tensor, or raises. Backward recomputes through the
-plain math, as the JAX custom VJPs do.
+its kernel for a CUDA tensor, or raises. ``attention_packed`` and
+``multi_head_attention`` route like the JAX package, which computes any head
+dim and dtype (Pallas where it can, XLA otherwise): a head dim or dtype the
+kernels do not take (``kernel_takes``) goes to the plain version. Backward
+recomputes through the plain math, as the JAX custom VJPs do.
 """
 
 from __future__ import annotations
@@ -35,6 +38,12 @@ K4 = Kernel(name="attention_bhsd", symbol="attention_bhsd_forward", source=_SOUR
             replaces="ml_depth_pro_video_tpu/ops/attention.py:74")
 
 HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def kernel_takes(hd: int, dtype: torch.dtype) -> bool:
+    """Whether K1, K3 and K4 compute attention at head dim ``hd`` in ``dtype``."""
+    return hd in HEAD_DIMS and dtype in KERNEL_DTYPES
 
 
 # ---------------------------------------------------------------------------
@@ -77,7 +86,7 @@ def attention_packed_reference(qkv: torch.Tensor, num_heads: int,
 def _check_kernel_input(name: str, t: torch.Tensor, hd: int) -> None:
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name} kernel supports head dims {HEAD_DIMS}, got {hd}")
-    if t.dtype not in (torch.bfloat16, torch.float32):
+    if t.dtype not in KERNEL_DTYPES:
         raise ValueError(f"{name} kernel takes bf16 or fp32, got {t.dtype}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} kernel needs 16-byte aligned tensors")
@@ -179,7 +188,10 @@ def attention_packed(qkv: torch.Tensor, num_heads: int,
                      key_bias: torch.Tensor | None = None) -> torch.Tensor:
     """(B, S, 3*D) packed head-contiguous qkv -> (B, S, D) attention output.
     ``key_bias`` (B, S) fp32 is added to the scaled scores per key; without
-    it the exact path's kernel K1 runs and reads no bias."""
+    it the exact path's kernel K1 runs and reads no bias. A head dim or
+    dtype the kernels do not take goes to the plain version."""
+    if not kernel_takes(qkv.shape[-1] // (3 * num_heads), qkv.dtype):
+        return attention_packed_reference(qkv, num_heads, key_bias)
     return _AttentionPacked.apply(qkv, num_heads, key_bias)
 
 
@@ -202,5 +214,8 @@ class _MultiHeadAttention(torch.autograd.Function):
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Self-attention over (B, H, S, D) tensors with 1/sqrt(D) scaling."""
+    """Self-attention over (B, H, S, D) tensors with 1/sqrt(D) scaling. A head
+    dim or dtype the kernels do not take goes to the plain version."""
+    if not kernel_takes(q.shape[-1], q.dtype):
+        return attention_reference(q, k, v)
     return _MultiHeadAttention.apply(q, k, v)

@@ -8,9 +8,9 @@ kernel K2 (``csrc/resblock.cu``) replaces the Pallas kernel
 ``_resblock_pallas``; ``fused_residual_block`` takes the plain version for
 a CPU tensor and launches K2 for a CUDA tensor, or raises.
 ``residual_block`` routes like the JAX package: bf16 square-channel blocks
-of at most 256 channels at the decoder's small levels go through
-``fused_residual_block``; everything else (fp32 parity mode, the 192^2+
-levels) takes the plain composition. The width gate W <= 96 is the JAX
+of at most 256 channels, a multiple of 8, at the decoder's small levels go
+through ``fused_residual_block``; everything else (fp32 parity mode, the
+192^2+ levels, channel counts K2 does not take) takes the plain composition. The width gate W <= 96 is the JAX
 package's TPU v5e measurement, kept on the H100: there K2 is slower than
 the plain composition at 192^2 and 384^2 (PERF.md, PR 5).
 """
@@ -120,6 +120,6 @@ def residual_block(x, w1, b1, w2, b2):
     """x + conv2(relu(conv1(relu(x)))), convs 3x3 pad 1."""
     c = w1.shape[2]
     if (x.dtype == torch.bfloat16 and c == w1.shape[3] == x.shape[-1]
-            and c <= K2_MAX_CHANNELS and x.shape[2] <= FUSED_MAX_WIDTH):
+            and c % 8 == 0 and c <= K2_MAX_CHANNELS and x.shape[2] <= FUSED_MAX_WIDTH):
         return fused_residual_block(x, w1, b1, w2, b2)
     return residual_block_reference(x, w1, b1, w2, b2)

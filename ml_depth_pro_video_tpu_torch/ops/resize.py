@@ -7,6 +7,8 @@ fp32) are applied as a gather and a weighted sum along each axis, which
 costs a few taps per output pixel instead of a dense matmul.
 ``F.interpolate`` itself computes its source coordinates in fp32, which
 puts it ~1e-4 away from the exact weights on noisy images.
+``resize_matrix`` folds the same taps into the JAX package's dense
+(out, in) matrix, which the checkpoint converter applies in fp64.
 """
 
 from __future__ import annotations
@@ -33,6 +35,11 @@ _FILTERS = {"bilinear": (_linear_filter, 1.0), "linear": (_linear_filter, 1.0),
             "bicubic": (_cubic_filter, 2.0), "cubic": (_cubic_filter, 2.0)}
 
 
+def _check_mode(mode: str) -> None:
+    if mode not in _FILTERS:
+        raise ValueError(f"Unsupported resize mode {mode!r}; expected one of {sorted(_FILTERS)}")
+
+
 @functools.lru_cache(maxsize=256)
 def resize_taps(in_size: int, out_size: int, mode: str = "bilinear",
                 antialias: bool = False) -> tuple[np.ndarray, np.ndarray]:
@@ -40,8 +47,14 @@ def resize_taps(in_size: int, out_size: int, mode: str = "bilinear",
     ``sum_t weights[i, t] * input[indices[i, t]]``. Border taps are clamped
     to the edge (torch's index clamping); with ``antialias`` the kernel is
     truncated at the border and renormalized (torch/PIL)."""
-    if mode not in _FILTERS:
-        raise ValueError(f"Unsupported resize mode {mode!r}; expected one of {sorted(_FILTERS)}")
+    idx, w = _taps64(in_size, out_size, mode, antialias)
+    return idx, w.astype(np.float32)
+
+
+def _taps64(in_size: int, out_size: int, mode: str,
+            antialias: bool) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`resize_taps` with the weights still in fp64."""
+    _check_mode(mode)
     filt, radius = _FILTERS[mode]
     if antialias and mode in ("bicubic", "cubic"):
         filt = functools.partial(_cubic_filter, a=-0.5)  # PIL's anti-aliased bicubic
@@ -57,7 +70,23 @@ def resize_taps(in_size: int, out_size: int, mode: str = "bilinear",
         w = np.where((taps >= 0) & (taps < in_size), w, 0.0)
     wsum = w.sum(axis=1, keepdims=True)
     w = np.where(wsum > 0, w / wsum, w)
-    return np.clip(taps, 0, in_size - 1), w.astype(np.float32)
+    return np.clip(taps, 0, in_size - 1), w
+
+
+@functools.lru_cache(maxsize=256)
+def resize_matrix(in_size: int, out_size: int, mode: str = "bilinear",
+                  antialias: bool = False) -> np.ndarray:
+    """Dense (out_size, in_size) row-stochastic matrix of the same resize
+    (twin of ``ml_depth_pro_video_tpu/ops/resize.py::resize_matrix``): the
+    identity when the sizes match, else the taps of :func:`resize_taps` with
+    the weights of clamped border taps summed, fp64 folded to fp32."""
+    _check_mode(mode)
+    if in_size == out_size:
+        return np.eye(out_size, dtype=np.float32)
+    idx, w = _taps64(in_size, out_size, mode, antialias)
+    mat = np.zeros((out_size, in_size), dtype=np.float64)
+    np.add.at(mat, (np.repeat(np.arange(out_size), idx.shape[1]), idx.ravel()), w.ravel())
+    return mat.astype(np.float32)
 
 
 def _resize_axis(x: torch.Tensor, axis: int, out_size: int, mode: str,

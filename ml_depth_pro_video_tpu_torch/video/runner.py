@@ -9,14 +9,18 @@ pinned host memory right behind its own compute, so fetching batch N
 overlaps the compute of batch N+1.
 
 ``speed`` picks the exact path or a ToMe speed tier (``balanced``,
-``fast``: ``models/depth_pro.py::apply_speed``). Options of the JAX runner
+``fast``: ``models/depth_pro.py::apply_speed``). ``temporal_smooth > 0``
+smooths the stream in playback order (``video/temporal.py``) and
+``fetch_pack="u16"`` fetches log-u16 codes instead of fp32 depth
+(``video/pack.py``): both run on the device right behind their batch's
+compute, and the host unpacks at collect time. Options of the JAX runner
 that this port does not implement yet (meshes, latency parallelism, AOT
-export, int8, temporal smoothing, u16 fetch packing) raise
-``NotImplementedError`` when set.
+export, int8) raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import queue
@@ -38,6 +42,7 @@ from ..models.depth_pro import (
     build_params,
     infer_fn,
 )
+from . import pack, temporal
 
 LOGGER = logging.getLogger(__name__)
 _STREAM_ERROR = "__stream_error__"
@@ -54,6 +59,20 @@ def _is_device_error(exc: BaseException) -> bool:
     if isinstance(exc, torch.cuda.OutOfMemoryError) or (accel and isinstance(exc, accel)):
         return True
     return type(exc) is RuntimeError and "CUDA error" in str(exc)
+
+
+@dataclasses.dataclass
+class _Flight:
+    """One dispatched batch, from dispatch to collect."""
+
+    keys: list
+    images: list
+    n: int                # real frames; the rest of the batch is padding
+    inputs: tuple         # (uint8 frames, f_px or None, mixed): what a retry re-dispatches
+    out: dict             # the model's device outputs
+    pre_state: object     # the EMA state this batch was smoothed from (None: smoothing off)
+    post_state: object    # ... and the state it left
+    fetch: tuple          # (host tensors, CUDA event or None)
 
 
 class DepthVideoRunner:
@@ -90,9 +109,7 @@ class DepthVideoRunner:
         if not 0.0 <= float(temporal_smooth) < 1.0:
             raise ValueError(f"temporal_smooth must be in [0, 1), got {temporal_smooth}")
         unported = {"mesh": mesh is not None, "parallel='latency'": parallel != "dp",
-                    "exported_path": exported_path is not None, "quantize": bool(quantize),
-                    "temporal_smooth": float(temporal_smooth) > 0.0,
-                    "fetch_pack='u16'": fetch_pack != "none"}
+                    "exported_path": exported_path is not None, "quantize": bool(quantize)}
         for name, is_set in unported.items():
             if is_set:
                 raise NotImplementedError(f"DepthVideoRunner({name}) is not ported to the "
@@ -116,6 +133,8 @@ class DepthVideoRunner:
                            else "thread")
         self.decode_pool = decode_pool
         self.pipeline_depth = max(int(pipeline_depth), 1)
+        self.temporal_smooth = float(temporal_smooth)
+        self.fetch_pack = fetch_pack
         self.model = DepthProModel(build_params(cfg, self.device, rng_seed), cfg).eval()
         self.params = self.model.tree()
 
@@ -131,25 +150,40 @@ class DepthVideoRunner:
         with torch.inference_mode():
             return infer_fn(self.params, x, f, self.cfg, self.precision, derive_missing=mixed)
 
-    def _start_fetch(self, out: dict):
-        """Queue the device-to-host copies right behind this batch's compute
+    def _post(self, out: dict, state, n: int):
+        """Queue the post-ops on the device behind the batch's compute: the
+        EMA over its first ``n`` rows from ``state``, then the u16 pack.
+        Returns (the new state, the tensors to fetch: depth or its packed
+        parts, then f_px). Nothing here waits for the card."""
+        depth = out["depth"]
+        with torch.inference_mode():
+            if self.temporal_smooth > 0.0:
+                state, depth = temporal.smooth_batch(state, depth, n,
+                                                     alpha=self.temporal_smooth)
+            parts = pack.pack_depth_u16(depth) if self.fetch_pack == "u16" else (depth,)
+        return state, (*parts, out["focallength_px"])
+
+    def _start_fetch(self, tensors):
+        """Queue the device-to-host copies right behind the batch's post-ops
         (pinned buffers, one event); nothing waits here."""
         if self.device.type != "cuda":
-            return out["depth"], out["focallength_px"], None
-        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                for t in (out["depth"], out["focallength_px"])]
-        for h, t in zip(host, (out["depth"], out["focallength_px"])):
+            return tensors, None
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+        for h, t in zip(host, tensors):
             h.copy_(t, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return host[0], host[1], done
+        return host, done
 
-    def _run(self, xs, f_arr, mixed):
-        """Dispatch one batch with bounded retries on CUDA runtime errors."""
+    def _run(self, inputs: tuple, state, n: int):
+        """Dispatch one batch (compute, post-ops from ``state``, fetch) with
+        bounded retries on CUDA runtime errors. Returns (out, new state, fetch)."""
         delay = 5.0
         for attempt in range(self.max_retries + 1):
             try:
-                return self._start_fetch(self._infer(xs, f_arr, mixed))
+                out = self._infer(*inputs)
+                new_state, parts = self._post(out, state, n)
+                return out, new_state, self._start_fetch(parts)
             except Exception as exc:  # noqa: BLE001 - filtered just below
                 if not _is_device_error(exc) or attempt == self.max_retries:
                     raise
@@ -165,7 +199,8 @@ class DepthVideoRunner:
         """Yield {"key", "depth", "focallength_px", "image"} per frame, in
         input order. Frames are grouped into device batches of
         ``batch_size``; a short tail batch is padded by repeating its last
-        frame. Frames without a focal length get it from the FOV head."""
+        frame. Frames without a focal length get it from the FOV head. With
+        ``temporal_smooth > 0`` each stream starts a fresh EMA state."""
         q: queue.Queue = queue.Queue(maxsize=self.prefetch * max(self.batch_size, 1))
         sentinel = object()
         stop = threading.Event()
@@ -232,10 +267,18 @@ class DepthVideoRunner:
         thread.start()
 
         pending: list = []
-        in_flight: deque = deque()  # (keys, images, n, inputs, fetch), oldest first
+        in_flight: deque = deque()  # _Flight, oldest first
+        smoothing = self.temporal_smooth > 0.0
+        # the EMA state threads through dispatch, which runs in playback order
+        smooth_state = None
+        # the state left by the last collected flight: its fetch proved it
+        # clean. A flight's own pre_state may be poisoned (a failed
+        # computation poisons what is chained onto it), so retries re-smooth
+        # from here.
+        collect_state = None
 
-        def dispatch():
-            nonlocal pending
+        def dispatch() -> _Flight:
+            nonlocal pending, smooth_state
             n = len(pending)
             keys = [p[0] for p in pending]
             imgs = [p[1] for p in pending]
@@ -253,17 +296,40 @@ class DepthVideoRunner:
                 f_arr = np.asarray(fs + [fs[-1]] * pad, np.float32)
             pending = []
             inputs = (xs, f_arr, mixed)
-            return keys, imgs, n, inputs, self._run(*inputs)
+            pre_state = smooth_state
+            out, smooth_state, fetch = self._run(inputs, pre_state, n)
+            return _Flight(keys, imgs, n, inputs, out, pre_state, smooth_state, fetch)
 
-        def collect(flight):
-            keys, imgs, n, inputs, fetch = flight
+        def heal(state) -> None:
+            """Re-chain the later flights' post-ops from a repaired state: if
+            the failure was a poisoned computation, their smoothing (chained
+            onto it at dispatch) is poisoned too, and so is the state that
+            the next dispatch would take. Their own compute is reused. A
+            flight whose post-ops fail again stops the walk; its own collect
+            retries it."""
+            nonlocal smooth_state
+            healed = 0
+            try:
+                for later in in_flight:
+                    later.pre_state = state
+                    state, parts = self._post(later.out, state, later.n)
+                    later.post_state, later.fetch = state, self._start_fetch(parts)
+                    healed += 1
+            except Exception as exc:  # noqa: BLE001 - filtered just below
+                if not _is_device_error(exc):
+                    raise
+            if healed == len(in_flight):
+                smooth_state = state
+
+        def collect(flight: _Flight):
+            nonlocal collect_state
             delay = 5.0
             for attempt in range(self.max_retries + 1):
                 try:
-                    depth, fl, done = fetch
+                    host, done = flight.fetch
                     if done is not None:
                         done.synchronize()
-                    depth, fl = depth.numpy()[:n], fl.numpy()[:n]
+                    fetched = [t.numpy()[:flight.n] for t in host]
                     break
                 except Exception as exc:  # noqa: BLE001 - filtered just below
                     if not _is_device_error(exc) or attempt == self.max_retries:
@@ -272,9 +338,20 @@ class DepthVideoRunner:
                                    "in %.0fs", attempt + 1, self.max_retries, exc, delay)
                     time.sleep(delay)
                     delay = min(delay * 2, 60.0)
-                    fetch = self._run(*inputs)
-            return [{"key": keys[i], "depth": depth[i], "focallength_px": float(fl[i]),
-                     "image": imgs[i]} for i in range(n)]
+                    # the EMA advances once per frame: re-smooth from the last
+                    # collected state (the saved pre_state only before any)
+                    base = flight.pre_state if collect_state is None else collect_state
+                    flight.out, flight.post_state, flight.fetch = self._run(
+                        flight.inputs, base, flight.n)
+                    flight.pre_state = base
+                    if smoothing:
+                        heal(flight.post_state)
+            collect_state = flight.post_state
+            *depth_parts, fl = fetched
+            depth = (pack.unpack_depth_u16(*depth_parts) if self.fetch_pack == "u16"
+                     else depth_parts[0])
+            return [{"key": flight.keys[i], "depth": depth[i], "focallength_px": float(fl[i]),
+                     "image": flight.images[i]} for i in range(flight.n)]
 
         try:
             while True:

@@ -2,7 +2,7 @@
 
 Run from the repository root on a machine with an NVIDIA H100::
 
-    python3 scripts/torch_slice_profile.py [--speed exact balanced fast]
+    python3 scripts/torch_slice_profile.py [--speed exact balanced fast] [--post-ops]
 
 For each speed tier asked for (default: exact) it builds one
 ``large``-preset ``DepthVideoRunner`` (ViT-L, 1536^2, random weights from
@@ -17,6 +17,13 @@ not timed):
    out the first and the last batch of the stream (one batch being the
    stream's device span divided by its number of batches), the device's idle
    share and the device time by kernel group and by kernel name.
+
+With ``--post-ops`` it also splits the cost of the runner's two post-ops:
+one exact ``large`` runner at batch 2 streams 96 frames made of one base
+frame plus integer noise in [-3, 3] (a static scene, so the smoother blends)
+with neither option, ``temporal_smooth=0.8`` alone, ``fetch_pack="u16"``
+alone, both, and neither again, frames/s of each on the host clock after a
+warm-up stream.
 
 Every line carries the card's name and power limit as nvidia-smi prints them.
 The profiler's own host cost makes the idle share an upper bound for the
@@ -165,9 +172,29 @@ def profile_speed(speed: str, where: str) -> None:
               f"{group_of(name)}: {name[:110]}")
 
 
+def post_ops(where: str) -> None:
+    runner = DepthVideoRunner(cfg=model_preset("large"), precision="bf16",
+                              batch_size=PROFILE_BATCH, rng_seed=0, device="cuda")
+    rng = np.random.default_rng(4)
+    base = rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    pool = [np.clip(base.astype(np.int16) + rng.integers(-3, 4, base.shape), 0, 255)
+            .astype(np.uint8) for _ in range(8)]
+    window = [pool[i % len(pool)] for i in range(SWEEP_FRAMES)]
+    # both options are read per stream, so one runner (one set of weights) serves every case
+    for smooth, fetch in ((0.0, "none"), (0.8, "none"), (0.0, "u16"), (0.8, "u16"),
+                          (0.0, "none")):
+        runner.temporal_smooth, runner.fetch_pack = smooth, fetch
+        stream_fps(runner, window[:4 * PROFILE_BATCH])
+        fps = stream_fps(runner, window)
+        print(f"[post-ops] exact, batch {PROFILE_BATCH}, temporal_smooth {smooth}, fetch_pack "
+              f"{fetch}: {fps} frames/s over {SWEEP_FRAMES} frames on {where}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--speed", nargs="+", choices=sorted(SPEED_PRESETS), default=["exact"])
+    ap.add_argument("--post-ops", action="store_true",
+                    help="also time the temporal smoother and the packed fetch")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -175,6 +202,8 @@ def main(argv=None) -> int:
     print(f"card: {where}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     for speed in args.speed:
         profile_speed(speed, where)
+    if args.post_ops:
+        post_ops(where)
     return 0
 
 

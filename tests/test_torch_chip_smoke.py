@@ -1,13 +1,17 @@
 """The yardstick of ``chip_smoke.py`` (``attention_flops``, ``nbytes``,
 ``bound``, ``median_ms``), pinned on the CPU at the shapes whose bounds
 ``PERF.md`` quotes, so that the documented bounds cannot drift from the code
-that prints them. Shapes only: the tensors live on the ``meta`` device.
+that prints them. Shapes only: the tensors live on the ``meta`` device. And
+the ``maps`` phase's arithmetic: the share of pixels outside the packed
+bound, the host-twin reference and its blended share, the noisy frames.
 """
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+from ml_depth_pro_video_tpu_torch.video.temporal import _update_core_np
 
 
 def _packed(b, s, heads, hd, dtype, with_bias):
@@ -85,3 +89,41 @@ def test_median_takes_more_events_for_a_short_kernel(monkeypatch):
         assert chip_smoke.median_ms(lambda: calls.append(1), calls=5) == pytest.approx(ms)
         assert len(made) == events
         assert len(calls) == 3 + 5 * events // 2  # three warm-up calls
+
+
+def test_outside_bound_counts_the_pixels_above_it():
+    want = np.full((2, 10, 10), 4.0)
+    got = want.copy().astype(np.float32)
+    got[0, 0, 0] = 4.0 * (1 + 2e-4)   # above a 1.5e-4 bound
+    got[1, 5, 5] = 4.0 * (1 - 1e-4)   # inside it
+    share, worst = chip_smoke.outside_bound(got, want, 1.5e-4)
+    assert share == pytest.approx(1 / 200)
+    assert worst == pytest.approx(2e-4, rel=1e-3)
+    assert chip_smoke.outside_bound(want, want, 0.0) == (0.0, 0.0)
+
+
+def test_smoothed_reference_is_the_host_twin_in_order_and_counts_the_blend():
+    """The first frame seeds and passes; later frames are the host twin's output
+    chained in order; the blended share is 0 for a moving scene and near 1 for
+    a static one."""
+    rng = np.random.default_rng(0)
+    base = (2.0 + rng.random((16, 20))).astype(np.float32)
+    static = [(base * (1 + 0.001 * rng.standard_normal(base.shape))).astype(np.float32)
+              for _ in range(3)]
+    out, blended = chip_smoke.smoothed_reference(static)
+    np.testing.assert_array_equal(out[0], static[0])
+    state = static[0]
+    for got, d in zip(out[1:], static[1:]):
+        state, _ = _update_core_np(state, d, alpha=chip_smoke.SMOOTH_ALPHA, tau=0.05, align=True)
+        np.testing.assert_array_equal(got, state)
+    assert blended > 0.99
+    moving = [base, base * 3.0, base * 9.0]  # every pixel changes by far more than tau
+    assert chip_smoke.smoothed_reference(moving)[1] == 0.0
+
+
+def test_noisy_frames_stay_within_three_levels_of_one_base():
+    frames = chip_smoke.noisy_frames(3, np.random.default_rng(1))
+    assert len(frames) == 3 and all(f.shape == (1080, 1920, 3) and f.dtype == np.uint8
+                                    for f in frames)
+    spread = np.ptp(np.stack(frames).astype(np.int16), axis=0)
+    assert spread.max() <= 6

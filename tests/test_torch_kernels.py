@@ -96,9 +96,27 @@ def test_attention_wide_block_with_whole_warps_past_the_end(cuda, s, with_bias):
     assert _packed_case(cuda, 24, s, 16, 64, torch.bfloat16, with_bias) <= 1e-2
 
 
-def test_attention_kernel_raises_on_unsupported_head_dim(cuda):
+@pytest.mark.parametrize("hd,dtype", [(24, torch.float32), (48, torch.bfloat16),
+                                      (80, torch.bfloat16), (64, torch.float16)])
+def test_attention_kernel_raises_on_unsupported_head_dim(cuda, hd, dtype):
+    """The kernel wrappers raise on a head dim or dtype the kernels do not
+    take; the public entry points send such input to the plain version (as
+    the JAX package computes it through XLA) and launch nothing."""
+    qkv = torch.randn(2, 9, 3 * 2 * hd, generator=cuda, device="cuda").to(dtype)
     with pytest.raises(ValueError):
-        A.attention_packed(torch.zeros(1, 8, 3 * 2 * 24, device="cuda"), 2)
+        A._attention_packed_cuda(qkv, 2)
+    q, k, v = (t.contiguous() for t in A._split_packed(qkv, 2))
+    with pytest.raises(ValueError):
+        A._attention_bhsd_cuda(q, k, v)
+    before = (A.K1.launches, A.K3.launches, A.K4.launches)
+    bias = torch.zeros(2, 9, device="cuda")
+    outs = [A.attention_packed(qkv, 2), A.attention_packed(qkv, 2, bias),
+            A.multi_head_attention(q, k, v)]
+    assert (A.K1.launches, A.K3.launches, A.K4.launches) == before
+    torch.testing.assert_close(outs[0], A.attention_packed_reference(qkv, 2), rtol=0, atol=0)
+    torch.testing.assert_close(outs[1], A.attention_packed_reference(qkv, 2, bias), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(outs[2], A.attention_reference(q, k, v), rtol=0, atol=0)
 
 
 def _log_sizes(shape, generator):

@@ -27,7 +27,9 @@ def test_port_covers_the_slice_modules():
     mods = set(_port_modules())
     for name in ("core.precision", "ops.norm", "ops.conv", "ops.resize", "ops.attention",
                  "ops.resblock", "kernels.loader", "models.vit", "models.depth_pro",
-                 "ckpt.params", "video.runner", "cli.run", "io.image"):
+                 "ckpt.params", "ckpt.convert", "video.runner", "video.pack", "video.temporal",
+                 "video.decode", "video.writer", "cli.run", "cli.generate_depth_maps",
+                 "cli.smooth_depth", "io.image"):
         assert f"ml_depth_pro_video_tpu_torch.{name}" in mods
 
 

@@ -23,12 +23,14 @@ from ml_depth_pro_video_tpu.ops import conv as jconv
 from ml_depth_pro_video_tpu.ops import resblock as jres
 from ml_depth_pro_video_tpu.ops.norm import layer_norm as j_layer_norm
 from ml_depth_pro_video_tpu.ops.resize import resize2d as j_resize2d
+from ml_depth_pro_video_tpu.ops.resize import resize_matrix as j_resize_matrix
 from ml_depth_pro_video_tpu_torch.kernels import loader
 from ml_depth_pro_video_tpu_torch.ops import attention as tattn
 from ml_depth_pro_video_tpu_torch.ops import conv as tconv
 from ml_depth_pro_video_tpu_torch.ops import resblock as tres
 from ml_depth_pro_video_tpu_torch.ops.norm import layer_norm as t_layer_norm
 from ml_depth_pro_video_tpu_torch.ops.resize import resize2d as t_resize2d
+from ml_depth_pro_video_tpu_torch.ops.resize import resize_matrix as t_resize_matrix
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -131,6 +133,19 @@ def test_resize2d_matches_jax(in_hw, out_hw, mode):
     _close(got, j_resize2d(jnp.asarray(x), out_hw, mode=mode), 1e-5, 1e-5)
 
 
+@pytest.mark.parametrize("in_size,out_size,mode,antialias", [
+    (14, 16, "bicubic", False), (37, 24, "bicubic", True), (24, 24, "bicubic", True),
+    (10, 7, "bilinear", False), (7, 19, "bilinear", True), (100, 33, "linear", True),
+    (33, 100, "cubic", False)])
+def test_resize_matrix_matches_jax(in_size, out_size, mode, antialias):
+    """The dense matrix the checkpoint converter resamples with, antialias included."""
+    got = t_resize_matrix(in_size, out_size, mode, antialias)
+    assert got.shape == (out_size, in_size) and got.dtype == np.float32
+    np.testing.assert_array_equal(got, j_resize_matrix(in_size, out_size, mode, antialias))
+    with pytest.raises(ValueError, match="Unsupported resize mode"):
+        t_resize_matrix(in_size, out_size, "nearest")
+
+
 def test_resize2d_keeps_dtype_and_leading_dims():
     x = torch.randn(2, 3, 16, 16, 4).bfloat16()
     y = t_resize2d(x, (8, 12))
@@ -166,6 +181,43 @@ def test_attention_kernel_wrapper_rejects_what_k1_does_not_take(shape, heads, dt
 def _log_sizes(rng, shape):
     """A ToMe key bias: log of integer token counts >= 1."""
     return np.log(rng.integers(1, 5, shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("hd,dtype,kernel", [
+    (64, torch.bfloat16, True), (32, torch.float32, True),
+    (48, torch.bfloat16, False), (80, torch.float32, False), (64, torch.float16, False)])
+def test_attention_routes_like_jax(monkeypatch, hd, dtype, kernel):
+    """Head dims and dtypes that K1/K3/K4 take go to the kernels; others (hd 48
+    and 80, fp16) take the plain version by a shape and dtype gate, as the JAX
+    package computes them through XLA. The CUDA launchers are replaced by
+    recorders and the device check made to say CUDA, so the route shows here."""
+    launched = []
+
+    def fake_packed(qkv, heads, key_bias=None):
+        launched.append("packed")
+        return tattn.attention_packed_reference(qkv, heads, key_bias)
+
+    def fake_bhsd(q, k, v):
+        launched.append("bhsd")
+        return tattn.attention_reference(q, k, v)
+
+    monkeypatch.setattr(tattn, "_on_cpu", lambda name, t: False)
+    monkeypatch.setattr(tattn, "_attention_packed_cuda", fake_packed)
+    monkeypatch.setattr(tattn, "_attention_bhsd_cuda", fake_bhsd)
+    g = torch.Generator().manual_seed(5)
+    heads, s = 2, 9
+    qkv = torch.randn(2, s, 3 * heads * hd, generator=g).to(dtype)
+    bias = torch.randn(2, s, generator=g)
+    q, k, v = tattn._split_packed(qkv, heads)
+    outs = [tattn.attention_packed(qkv, heads), tattn.attention_packed(qkv, heads, bias),
+            tattn.multi_head_attention(q, k, v)]
+    assert launched == (["packed", "packed", "bhsd"] if kernel else [])
+    assert tattn.kernel_takes(hd, dtype) == kernel
+    refs = [tattn.attention_packed_reference(qkv, heads),
+            tattn.attention_packed_reference(qkv, heads, bias), tattn.attention_reference(q, k, v)]
+    for got, ref in zip(outs, refs):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("block_heads", [None, 2])  # full width and head-grouped
@@ -293,11 +345,12 @@ def test_residual_block_routes_like_jax(monkeypatch):
     """bf16 square blocks at W <= 96 take the fused wrapper; fp32 and wider
     levels take the plain composition (as the JAX package's gate: on the H100
     K2 did not beat the plain composition by 10% at 192^2, PERF.md), and so do
-    blocks wider than K2's 256 channels."""
+    blocks wider than K2's 256 channels and blocks whose channel count is not
+    a multiple of 8 (C = 12)."""
     calls = []
     monkeypatch.setattr(tres, "fused_residual_block",
                         lambda *a: calls.append(a[0].shape) or tres.residual_block_reference(*a))
-    for c in (16, 264):
+    for c in (16, 264, 12):
         w, b = torch.randn(3, 3, c, c) * 0.1, torch.randn(c) * 0.1
         for shape, dtype in [((1, 8, 96, c), torch.bfloat16), ((1, 8, 97, c), torch.bfloat16),
                              ((1, 8, 8, c), torch.float32)]:

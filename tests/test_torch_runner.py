@@ -15,13 +15,12 @@ import pytest
 import torch
 from PIL import Image
 
-from ml_depth_pro_video_tpu.ckpt.convert import save_params
 from ml_depth_pro_video_tpu.models.depth_pro import tiny_config as j_tiny_config
 from ml_depth_pro_video_tpu.video.runner import DepthVideoRunner as JaxRunner
-from ml_depth_pro_video_tpu_torch.ckpt.params import init_depth_pro, to_numpy_tree
 from ml_depth_pro_video_tpu_torch.cli import run as cli_run
 from ml_depth_pro_video_tpu_torch.models.depth_pro import tiny_config
 from ml_depth_pro_video_tpu_torch.video.runner import DepthVideoRunner
+from torch_checkpoint import write_tiny_checkpoint
 
 RTOL, ATOL = 1e-3, 1e-4
 
@@ -38,23 +37,7 @@ def _one_thread():
 def checkpoint(tmp_path_factory):
     """Random tiny params as the JAX converter writes them; every leaf
     redrawn from numpy (biases and LayerScale included)."""
-    rng = np.random.default_rng(11)
-    tree = to_numpy_tree(init_depth_pro(tiny_config(), torch.Generator().manual_seed(0)))
-
-    def redraw(node):
-        if isinstance(node, dict):
-            return {k: redraw(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [redraw(v) for v in node]
-        if node is None:
-            return None
-        std = float(node.std())
-        return (node.mean() + rng.standard_normal(node.shape) * (std if std > 0 else 0.1)
-                ).astype(np.float32)
-
-    path = str(tmp_path_factory.mktemp("ckpt") / "tiny.npz")
-    save_params(path, redraw(tree))
-    return path
+    return write_tiny_checkpoint(str(tmp_path_factory.mktemp("ckpt") / "tiny.npz"))
 
 
 def _frames(n, h=60, w=84, seed=0):
@@ -164,8 +147,7 @@ def test_runner_retries_device_errors_only(checkpoint, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"parallel": "latency"},
-                                    {"exported_path": "x.bin"}, {"quantize": True},
-                                    {"temporal_smooth": 0.5}, {"fetch_pack": "u16"}])
+                                    {"exported_path": "x.bin"}, {"quantize": True}])
 def test_unported_runner_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         DepthVideoRunner(cfg=tiny_config(), device="cpu", **kwargs)
