@@ -55,7 +55,18 @@ Phases (each prints its own lines; any failure exits non-zero):
 5b. speed-tier accuracy: the checked-in ToMe proxy weights
    (``tests/fixtures/tome_proxy_weights.npz``) at merge ratios 0.25 and 0.5,
    fp32 on the card (K1, K3) against the CPU path;
-6. maps CLI: ``depth-pro-maps-torch`` over 4 PNG frames of 1080x1920
+6. pipeline: ``depth-pro-video-torch`` (``cli/pipeline.py::main``, in the
+   main thread) over 8 PNG frames of 1080x1920 at the ``large`` preset
+   (``--batch_size 2 --num_workers 4 --renderer fast``; ``--fit_shapes
+   --output_main_only`` where scikit-learn imports, else ``--no_fit_shapes``),
+   after the host geometry's C++ library (``native/*.cpp``) is built and
+   loaded; every frame must be a success in ``processing_progress.json``,
+   ``ground.json`` finite, every ``*_clean_simple_view.png`` decodable, and the
+   launches 72 K1 and 3 K2 per forward, frame 0's ground-fit ``infer_one``
+   counting as one (no K3 or K4); then the pipeline's frames/s, the median
+   geometry seconds per frame, the ground fit's seconds and the exact slice's
+   frames/s;
+7. maps CLI: ``depth-pro-maps-torch`` over 4 PNG frames of 1080x1920
    (``--save_npz --packed_fetch --colormap gray16 --batch_size 2``, 72 K1 and
    3 K2 launches per forward), then ``depth-pro-smooth-torch`` over its npz
    files; file counts, shapes and finiteness are checked (needs Pillow).
@@ -82,7 +93,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ml_depth_pro_video_tpu_torch import native
 from ml_depth_pro_video_tpu_torch.cli import generate_depth_maps, smooth_depth
+from ml_depth_pro_video_tpu_torch.cli import pipeline as cli_pipeline
 from ml_depth_pro_video_tpu_torch.ckpt.params import (
     from_numpy_tree,
     init_depth_pro,
@@ -118,6 +131,7 @@ from ml_depth_pro_video_tpu_torch.ops.resblock import (
     residual_block_reference,
 )
 from ml_depth_pro_video_tpu_torch.ops.resize import resize2d
+from ml_depth_pro_video_tpu_torch.video import pipeline
 from ml_depth_pro_video_tpu_torch.video.pack import max_rel_error, pack_depth_u16, unpack_depth_u16
 from ml_depth_pro_video_tpu_torch.video.runner import DepthVideoRunner
 from ml_depth_pro_video_tpu_torch.video.temporal import _update_core_np, smooth_batch
@@ -159,6 +173,8 @@ SMOOTH_ALPHA = 0.8
 MAPS_SLACK = 1e-5  # fp32 log/exp and the device's reduction order, beside the packing bound
 MAPS_SHARE = 0.9999  # of pixels within the bound; the rest are static-gate flips at tau
 MAPS_CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_maps"  # ignored by git
+PIPELINE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_pipeline"  # ignored by git
+PIPELINE_FRAMES = 8  # 5 forwards at BATCH: frame 0 alone, then 7 frames in 4 batches
 PROXY = Path(__file__).resolve().parent / "tests" / "fixtures" / "tome_proxy_weights.npz"
 PROXY_RATIOS = (0.25, 0.5)
 
@@ -648,6 +664,103 @@ def phase_maps_cli() -> dict:
     return launches
 
 
+def pipeline_forwards(n_frames: int, batch_size: int = BATCH) -> int:
+    """Forwards of a pipeline run without a cached ``ground.json``: frame 0's
+    ground-fit ``infer_one`` (one frame, padded to a batch), then the other
+    frames in batches (frame 0's inference is reused, not run again)."""
+    return 1 + math.ceil((n_frames - 1) / batch_size)
+
+
+def shape_flags() -> tuple[list, str]:
+    """Shape fitting where scikit-learn (DBSCAN) imports, without its
+    matplotlib artifacts; else none."""
+    try:
+        import sklearn  # noqa: F401
+    except ImportError:
+        return ["--no_fit_shapes"], "shape fitting off (scikit-learn does not import)"
+    return ["--fit_shapes", "--output_main_only"], "shape fitting on (scikit-learn imports)"
+
+
+def phase_pipeline(exact_fps: float) -> dict:
+    """``depth-pro-video-torch`` over a directory of PNG frames: the frames ->
+    depth -> floor-plan path with the host geometry on its native C++ route."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    if not native.neighbors.available():
+        raise AssertionError("pipeline: the native geometry library did not build or load")
+    log(f"[pipeline] native geometry library built from native/*.cpp and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+    frames, plans = PIPELINE_DIR / "frames", PIPELINE_DIR / "plans"
+    frames.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 7)
+    for i in range(PIPELINE_FRAMES):
+        Image.fromarray(rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)).save(
+            frames / f"output_{i:06d}.png")
+    flags, shapes = shape_flags()
+    # the geometry seconds of each frame and the ground fit's, read through the
+    # module's own functions, which the pipeline looks up when it calls them
+    geometry, ground = [], []
+    real_frame, real_ground = pipeline.process_single_frame, pipeline.compute_ground_from_frame
+
+    def timed_frame(*args, **kwargs):
+        ok, dt = real_frame(*args, **kwargs)
+        geometry.append(dt)
+        return ok, dt
+
+    def timed_ground(*args, **kwargs):
+        t = time.perf_counter()
+        model = real_ground(*args, **kwargs)
+        ground.append(time.perf_counter() - t)
+        return model
+
+    pipeline.process_single_frame, pipeline.compute_ground_from_frame = timed_frame, timed_ground
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        cli_pipeline.main(["--frames_dir", str(frames), "--output_dir", str(plans),
+                           "--batch_size", str(BATCH), "--num_workers", "4",
+                           "--renderer", "fast", *flags, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        pipeline.process_single_frame, pipeline.compute_ground_from_frame = real_frame, real_ground
+    forwards = pipeline_forwards(PIPELINE_FRAMES)
+    log(f"[pipeline] depth-pro-video-torch, large preset, bf16, batch {BATCH}, 4 geometry "
+        f"workers, fast renderer, {shapes}: {PIPELINE_FRAMES} frames of 1080x1920, {forwards} "
+        f"forwards (frame 0 alone for the ground fit), launches {launches}")
+    progress = json.loads((plans / "processing_progress.json").read_text())
+    names = [f"output_{i:06d}.png" for i in range(PIPELINE_FRAMES)]
+    failed = [n for n in names if not progress.get(n, {}).get("success")]
+    if failed:
+        raise AssertionError(f"pipeline: frames not recorded as successes: {failed}")
+    model = json.loads((frames / "ground.json").read_text())
+    values = [*model["normal"], model["d"], *model["origin"]]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"pipeline: ground.json not finite: {model}")
+    for n in names:
+        img = np.asarray(Image.open(plans / n.replace(".png", "_clean_simple_view.png")))
+        if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+            raise AssertionError(f"pipeline: {n}'s floor plan is {img.shape} {img.dtype}")
+    want = {name: n * forwards for name, n in PER_FORWARD["exact"].items()}
+    if launches != want:
+        raise AssertionError(f"pipeline: kernel launches {launches} != {want} "
+                             f"({PER_FORWARD['exact']} per forward x {forwards})")
+    log(f"[pipeline] {PIPELINE_FRAMES} successes in processing_progress.json, ground.json "
+        f"finite (normal {[round(v, 6) for v in model['normal']]}, d {model['d']:.6g}), "
+        f"{PIPELINE_FRAMES} floor plans decode as RGB")
+    log(f"[pipeline] {PIPELINE_FRAMES / wall} frames/s over the whole run ({wall:.3f} s: the "
+        f"model's build, the decode pools, the ground fit, geometry and PNGs included); "
+        f"geometry median {statistics.median(geometry):.4f} s per frame (min "
+        f"{min(geometry):.4f}, max {max(geometry):.4f}); ground fit {ground[0]:.4f} s; the "
+        f"exact slice's {exact_fps} frames/s in this run; on {card()}")
+    shutil.rmtree(PIPELINE_DIR)
+    return launches
+
+
 def phase_unpacked_entry() -> dict:
     """The unpacked-attention entry point at a ViT-L block's shape."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -768,6 +881,7 @@ def main() -> int:
         del runner
     paths["multi_head_attention"] = phase_unpacked_entry()
     phase_speed_accuracy()
+    paths["pipeline"] = phase_pipeline(exact_fps)
     paths["maps_cli"] = phase_maps_cli()  # last: its decode pool's processes come and go
     kernels = []
     for key, k in KERNELS.items():

@@ -21,13 +21,8 @@ import logging
 import os
 import sys
 
+from ..video.pipeline import frame_number
 from ..video.temporal import smooth_depth_files
-
-
-def frame_number(path: str) -> int | None:
-    """The digits of a file name as one number (frame_12.png -> 12), or None."""
-    digits = "".join(ch for ch in os.path.basename(path) if ch.isdigit())
-    return int(digits) if digits else None
 
 
 def _ordered(paths: list[str]) -> list[str]:

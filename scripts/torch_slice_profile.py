@@ -25,6 +25,19 @@ with neither option, ``temporal_smooth=0.8`` alone, ``fetch_pack="u16"``
 alone, both, and neither again, frames/s of each on the host clock after a
 warm-up stream.
 
+With ``--pipeline N`` it runs the frames -> depth -> floor-plan pipeline
+(``video/pipeline.py::process_images_to_floor_plans``, as
+``depth-pro-video-torch`` calls it) over N PNG frames of 1080x1920 from seed 0
+on one exact ``large`` runner at batch 2, 4 geometry workers, the fast
+renderer (shape fitting where scikit-learn imports): a first run fits and
+caches ``ground.json`` (and builds the host geometry's C++ library), a
+second and third read frames/s, when the first and last frame's geometry
+started and the geometry seconds per frame with the ground cached, first
+with the runner's own choice of decode pool (processes on 4 or more
+cores), then with threads; a last one runs under the profiler for the
+device's idle share and time by kernel group over the same window as above. Without
+``--speed`` it then skips the tiers.
+
 Every line carries the card's name and power limit as nvidia-smi prints them.
 The profiler's own host cost makes the idle share an upper bound for the
 unprofiled run; the script prints both rates so they can be compared.
@@ -190,12 +203,92 @@ def post_ops(where: str) -> None:
               f"{fetch}: {fps} frames/s over {SWEEP_FRAMES} frames on {where}", flush=True)
 
 
+def pipeline_profile(n_frames: int, where: str) -> None:
+    import importlib.util
+
+    from PIL import Image
+
+    from ml_depth_pro_video_tpu_torch.video import pipeline
+
+    runner = DepthVideoRunner(cfg=model_preset("large"), precision="bf16",
+                              batch_size=PROFILE_BATCH, rng_seed=0, device="cuda")
+    fit_shapes = importlib.util.find_spec("sklearn") is not None
+    starts: list = []   # each frame's geometry start, seconds after its run began
+    geometry: list = []
+    real_frame = pipeline.process_single_frame
+
+    def timed_frame(*args, **kwargs):
+        starts.append(time.perf_counter() - run_start[0])
+        ok, dt = real_frame(*args, **kwargs)
+        geometry.append(dt)
+        return ok, dt
+
+    run_start = [0.0]
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = Path(tmp) / "frames"
+        frames.mkdir()
+        rng = np.random.default_rng(0)
+        for i in range(n_frames):
+            Image.fromarray(rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)).save(
+                frames / f"output_{i:06d}.png")
+
+        def run(out: str) -> float:
+            starts.clear()
+            geometry.clear()
+            torch.cuda.synchronize()
+            run_start[0] = time.perf_counter()
+            done = pipeline.process_images_to_floor_plans(
+                str(frames), output_dir=str(Path(tmp) / out), batch_size=PROFILE_BATCH,
+                num_workers=4, renderer="fast", fit_shapes=fit_shapes, output_all_files=False,
+                runner=runner)
+            torch.cuda.synchronize()
+            if len(done) != n_frames:
+                raise RuntimeError(f"pipeline: {len(done)} of {n_frames} frames succeeded")
+            return time.perf_counter() - run_start[0]
+
+        first_s = run("first")  # fits and caches ground.json
+        print(f"[pipeline] exact, batch {PROFILE_BATCH}, 4 geometry workers, fast renderer, "
+              f"shape fitting {'on' if fit_shapes else 'off'}, {n_frames} frames of 1080x1920: "
+              f"first run (ground fit) {first_s:.3f} s on {where}", flush=True)
+        pipeline.process_single_frame = timed_frame
+        try:
+            # the runner's decode pool is read per stream: its own choice, then threads
+            for pool in (runner.decode_pool, "thread"):
+                runner.decode_pool = pool
+                wall = run(f"timed_{pool}")
+                times = sorted(geometry)
+                print(f"[pipeline] ground cached, {pool} decode pool: {n_frames / wall} frames/s "
+                      f"({wall:.3f} s); first geometry start {min(starts):.3f} s, last "
+                      f"{max(starts):.3f} s; geometry median {times[len(times) // 2]:.4f} s per "
+                      f"frame (min {times[0]:.4f}, max {times[-1]:.4f}) on {where}", flush=True)
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                prof_wall = run("profiled")
+        finally:
+            pipeline.process_single_frame = real_frame
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        n_batches = -(-n_frames // PROFILE_BATCH)
+        rep = breakdown(trace, n_batches)
+    print(f"[pipeline] under the profiler ({pool} decode pool): {n_frames / prof_wall} frames/s; "
+          f"window without the first and last batch: {rep['window_ms']:.3f} ms; device busy "
+          f"{rep['busy_ms']:.3f} ms; idle share {rep['idle_share']:.4f}")
+    for label, us in rep["by_group"]:
+        print(f"[pipeline group] {us / 1e3:10.3f} ms {us / 1e3 / rep['summed_ms']:7.2%}  {label}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--speed", nargs="+", choices=sorted(SPEED_PRESETS), default=["exact"])
+    ap.add_argument("--speed", nargs="+", choices=sorted(SPEED_PRESETS), default=None,
+                    help="speed tiers to sweep and profile (default: exact, or none with "
+                         "--pipeline)")
     ap.add_argument("--post-ops", action="store_true",
                     help="also time the temporal smoother and the packed fetch")
+    ap.add_argument("--pipeline", type=int, default=0, metavar="FRAMES",
+                    help="also time and profile the floor-plan pipeline over FRAMES frames")
     args = ap.parse_args(argv)
+    if args.speed is None:
+        args.speed = [] if args.pipeline else ["exact"]
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     where = card()
@@ -204,6 +297,8 @@ def main(argv=None) -> int:
         profile_speed(speed, where)
     if args.post_ops:
         post_ops(where)
+    if args.pipeline:
+        pipeline_profile(args.pipeline, where)
     return 0
 
 

@@ -127,3 +127,35 @@ def test_noisy_frames_stay_within_three_levels_of_one_base():
                                     for f in frames)
     spread = np.ptp(np.stack(frames).astype(np.int16), axis=0)
     assert spread.max() <= 6
+
+
+# the pipeline phase: frame 0 alone for the ground fit, then the rest at batch 2
+@pytest.mark.parametrize("n_frames,batch,forwards", [(8, 2, 5), (1, 2, 1), (2, 2, 2), (3, 2, 2),
+                                                     (9, 2, 5), (8, 1, 8), (8, 4, 3)])
+def test_pipeline_forwards_count_the_frame_0_inference(n_frames, batch, forwards):
+    assert chip_smoke.pipeline_forwards(n_frames, batch) == forwards
+
+
+def test_pipeline_phase_expects_72_k1_and_3_k2_per_forward():
+    forwards = chip_smoke.pipeline_forwards(chip_smoke.PIPELINE_FRAMES)
+    assert forwards == 5
+    want = {name: n * forwards for name, n in chip_smoke.PER_FORWARD["exact"].items()}
+    assert want == {"K1": 360, "K2": 15, "K3": 0, "K4": 0}
+
+
+def test_shape_flags_follow_scikit_learn(monkeypatch):
+    import builtins
+
+    flags, _ = chip_smoke.shape_flags()
+    assert flags == ["--fit_shapes", "--output_main_only"]  # scikit-learn imports here
+    real = builtins.__import__
+
+    def no_sklearn(name, *args, **kwargs):
+        if name.split(".")[0] == "sklearn":
+            raise ImportError(name)
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_sklearn)
+    monkeypatch.delitem(__import__("sys").modules, "sklearn", raising=False)
+    flags, why = chip_smoke.shape_flags()
+    assert flags == ["--no_fit_shapes"] and "does not import" in why

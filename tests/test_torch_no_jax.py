@@ -15,8 +15,12 @@ FORBIDDEN = ("jax", "ml_depth_pro_video_tpu")  # as a top-level package name
 
 
 def _port_modules():
+    """Every Python module of the port. A name that is no identifier is no
+    Python module: ``native/geom-native.so``, the C++ geometry library that
+    ctypes loads once it is built."""
     return sorted(m.name for m in pkgutil.walk_packages(ml_depth_pro_video_tpu_torch.__path__,
-                                                        "ml_depth_pro_video_tpu_torch."))
+                                                        "ml_depth_pro_video_tpu_torch.")
+                  if m.name.rsplit(".", 1)[-1].isidentifier())
 
 
 def _forbidden(module: str) -> bool:
@@ -28,8 +32,10 @@ def test_port_covers_the_slice_modules():
     for name in ("core.precision", "ops.norm", "ops.conv", "ops.resize", "ops.attention",
                  "ops.resblock", "kernels.loader", "models.vit", "models.depth_pro",
                  "ckpt.params", "ckpt.convert", "video.runner", "video.pack", "video.temporal",
-                 "video.decode", "video.writer", "cli.run", "cli.generate_depth_maps",
-                 "cli.smooth_depth", "io.image"):
+                 "video.decode", "video.writer", "video.pipeline", "cli.run",
+                 "cli.generate_depth_maps", "cli.smooth_depth", "cli.pipeline", "io.image",
+                 "native", "geom.pointcloud", "geom.unproject", "geom.ground", "geom.clean",
+                 "geom.shapes", "geom.floorplan_viz", "geom.render"):
         assert f"ml_depth_pro_video_tpu_torch.{name}" in mods
 
 
