@@ -66,6 +66,27 @@ Phases (each prints its own lines; any failure exits non-zero):
    counting as one (no K3 or K4); then the pipeline's frames/s, the median
    geometry seconds per frame, the ground fit's seconds and the exact slice's
    frames/s;
+6a. device_floorplan: the floor-plan program of ``geom/device_floorplan.py``
+   on a structured 1080x1920 scene (a floor, a back wall and box faces,
+   ray-cast and blurred like monocular depth edges) with the ground plane
+   fitted from it: the card against the same function on the CPU (``debug``
+   outputs: coordinates, masks, raster), then against the port's host chain
+   under ``tests/test_device_floorplan.py``'s gates (stray superset, shadow
+   mismatch, raster disagreement and colour); the card's call runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` up to the raster's fetch; ms
+   per frame at subsample 1 and 2 (CUDA events) and the peak memory;
+6b. pipeline_device: ``depth-pro-video-torch --geometry device`` over the
+   pipeline phase's 8 frames without ``ground.json``: 8 successes,
+   ``floorplan_limits.json`` with its fingerprint, 8 plans of the raster's
+   size, 72 K1 and 3 K2 per forward (no K3 or K4); then frames/s with the
+   ground and the framing cached, beside the host geometry's in the same
+   call;
+6c. effect: ``parallax_frames`` at 1080x1920 for the three motions and
+   ``anaglyph_image``, the card against the CPU path (uint8 |diff| <= 1 on at
+   most ``EFFECT_SHARE`` of the values), ms per frame; then
+   ``depth-pro-effect-torch`` on one PNG: an mp4 that ``cv2.VideoCapture``
+   reads back with ``duration*fps`` frames, and the anaglyph PNG (72 K1 and 3
+   K2 per image);
 7. maps CLI: ``depth-pro-maps-torch`` over 4 PNG frames of 1080x1920
    (``--save_npz --packed_fetch --colormap gray16 --batch_size 2``, 72 K1 and
    3 K2 launches per forward), then ``depth-pro-smooth-torch`` over its npz
@@ -103,6 +124,16 @@ from ml_depth_pro_video_tpu_torch.ckpt.params import (
     map_tree,
 )
 from ml_depth_pro_video_tpu_torch.core.precision import Precision, disable_tf32
+from ml_depth_pro_video_tpu_torch.effects import parallax
+from ml_depth_pro_video_tpu_torch.geom.clean import clean_shadows, remove_stray_points
+from ml_depth_pro_video_tpu_torch.geom.device_floorplan import (
+    DeviceFloorplanConfig,
+    make_device_floorplan,
+)
+from ml_depth_pro_video_tpu_torch.geom.floorplan_viz import fast_floorplan_image
+from ml_depth_pro_video_tpu_torch.geom.ground import grid_ground_adjustment, normalize_to_ground
+from ml_depth_pro_video_tpu_torch.geom.pointcloud import PointCloud
+from ml_depth_pro_video_tpu_torch.geom.unproject import depth_to_3d
 from ml_depth_pro_video_tpu_torch.kernels.loader import load_library
 from ml_depth_pro_video_tpu_torch.models import vit as vit_module
 from ml_depth_pro_video_tpu_torch.models.depth_pro import (
@@ -176,6 +207,18 @@ MAPS_CLI_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_maps"  # 
 PIPELINE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_pipeline"  # ignored by git
 PIPELINE_FRAMES = 8  # 5 forwards at BATCH: frame 0 alone, then 7 frames in 4 batches
 PROXY = Path(__file__).resolve().parent / "tests" / "fixtures" / "tome_proxy_weights.npz"
+EFFECT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_effect"  # ignored by git
+SCENE_F_PX = 1500.0  # the structured scene's focal length at 1920 px wide
+# the card against the CPU path of the same floor-plan program: fp32 ops in the same order on
+# both sides, so only ulp-level differences (a 3-element norm's order, the libraries' division
+# and sqrt) reach the outputs
+FP_COORD_ATOL = 1e-4  # metres, max |diff| of x / y / z over valid points
+FP_MASK_SHARE = 1e-3  # of points whose valid / keep_stray / keep differ
+FP_RASTER_SHARE = 1e-3  # of raster pixels that differ
+# tests/test_device_floorplan.py's gates against the host chain, copied as they are
+STRAY_EXTRA, SHADOW_MISMATCH, BG_MISSING, BG_DIFFER, COLOR_P95 = 0.35, 0.02, 0.02, 0.15, 0.02
+EFFECT_SHARE = 1e-3  # of uint8 values that may differ by 1 (sin / cos differ by ulps); none by more
+EFFECT_FRAMES = (1.0, 8)  # the effect's (duration s, fps): 8 frames
 PROXY_RATIOS = (0.25, 0.5)
 
 
@@ -215,16 +258,23 @@ def median_ms(fn, iters: int = 20, short_ms: float = 0.2, short_iters: int = 100
     return statistics.median(times)
 
 
-def device_ms(fn, calls: int = 10) -> float:
-    """Device time of one call: its kernels' own time summed by the profiler
-    over ``calls`` calls, without the gaps where the card waits on the host."""
+def kernel_times(fn, calls: int = 10) -> list:
+    """(kernel name, device ms per call) of one call's kernels, the most time
+    first: the profiler's own kernel time over ``calls`` calls."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / calls / 1e3
+    rows = [(e.key, e.self_device_time_total / calls / 1e3) for e in prof.key_averages()]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """Device time of one call: its kernels' own time summed by the profiler
+    over ``calls`` calls, without the gaps where the card waits on the host."""
+    return sum(ms for _, ms in kernel_times(fn, calls))
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -757,7 +807,335 @@ def phase_pipeline(exact_fps: float) -> dict:
         f"geometry median {statistics.median(geometry):.4f} s per frame (min "
         f"{min(geometry):.4f}, max {max(geometry):.4f}); ground fit {ground[0]:.4f} s; the "
         f"exact slice's {exact_fps} frames/s in this run; on {card()}")
+    # the frames stay for the pipeline_device phase, which removes the directory
+    return launches, PIPELINE_FRAMES / wall
+
+
+def structured_scene(h: int, w: int, f_px: float, seed: int) -> dict:
+    """A room ray-cast through the pinhole camera of ``geom/unproject.py``
+    (principal point at the centre, X and Y negated, depth = z): a floor, a
+    back wall and three boxes (front and top faces) with Lambert-shaded
+    albedo, the depth blurred by a Gaussian of sigma 1.5 px as monocular
+    depth smears its edges (the shadow streaks the cleanup stages remove).
+    Returns {"image": (h, w, 3) uint8, "depth": (h, w) float32, "f_px"}."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.default_rng(seed)
+    ys, xs = np.mgrid[0:h, 0:w]
+    # the point at depth t along pixel (xs, ys) is t * (dx, dy, 1)
+    dx, dy = -(xs - w / 2.0) / f_px, -(ys - h / 2.0) / f_px
+    t_hit = np.full((h, w), np.inf)
+    normal, albedo = np.zeros((h, w, 3)), np.zeros((h, w, 3))
+
+    def hit(t, cond, n, alb):
+        ok = cond & (t > 0.1) & (t < t_hit)
+        t_hit[ok], normal[ok], albedo[ok] = t[ok], n, alb
+
+    floor_y, zb = -1.2 - rng.uniform(0.0, 0.3), rng.uniform(6.0, 8.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        hit(floor_y / dy, dy < 0, [0, 1, 0], rng.uniform(0.3, 0.9, 3))
+        hit(np.full((h, w), zb), np.ones((h, w), bool), [0, 0, -1], rng.uniform(0.3, 0.9, 3))
+        for _ in range(3):
+            cx, cz = rng.uniform(-1.5, 1.5), rng.uniform(2.0, zb - 1.0)
+            half, top = rng.uniform(0.2, 0.6), floor_y + rng.uniform(0.4, 1.2)
+            alb = rng.uniform(0.2, 1.0, 3)
+            hit(np.full((h, w), cz), (np.abs(dx * cz - cx) < half) & (dy * cz > floor_y)
+                & (dy * cz < top), [0, 0, -1], alb)
+            t = top / dy
+            hit(t, (dy < 0) & (np.abs(dx * t - cx) < half) & (t > cz) & (t < cz + 2 * half),
+                [0, 1, 0], alb)
+    light = np.asarray([0.5, 0.8, -0.3]) / np.linalg.norm([0.5, 0.8, -0.3])
+    lam = np.clip(normal @ light, 0.15, 1.0)[..., None]
+    image = np.clip(albedo * lam * 255.0, 0, 255).astype(np.uint8)
+    depth = gaussian_filter(t_hit, sigma=1.5).astype(np.float32)
+    return {"image": image, "depth": depth, "f_px": f_px}
+
+
+def host_keep(clean, points: np.ndarray) -> np.ndarray:
+    """Which points the host filter ``clean`` keeps: each point carries its
+    own index through the filter as its colour."""
+    idx = np.arange(len(points), dtype=np.float64)
+    out = clean(PointCloud(points, np.stack([idx] * 3, axis=-1)))
+    keep = np.zeros(len(points), bool)
+    keep[out.colors[:, 0].astype(np.int64)] = True
+    return keep
+
+
+def run_floorplan(fn, scene: dict, device: torch.device) -> dict:
+    """One call of a floor-plan program; on the card the inputs are uploaded
+    first and the call runs with every host sync an error, then the outputs
+    are fetched."""
+    args = (torch.from_numpy(scene["depth"]).to(device), torch.from_numpy(scene["image"]).to(device),
+            torch.tensor(scene["f_px"], dtype=torch.float32, device=device))
+    if device.type != "cuda":
+        return {k: v.numpy() for k, v in fn(*args).items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def check_device_floorplan(scene: dict, ground: dict, device="cuda") -> tuple[dict, dict]:
+    """The floor-plan program on ``device`` against the same function on the
+    CPU and against the port's host chain, each under its stated bound.
+    Returns (the readings, the program's config)."""
+    dev = torch.device(device)
+    h, w = scene["depth"].shape
+    cloud = depth_to_3d(scene["depth"], scene["f_px"], image=scene["image"])
+    host = PointCloud(grid_ground_adjustment(normalize_to_ground(cloud.points, ground)),
+                      cloud.colors)
+    above = host.points[:, 1] >= 0.1  # tests/test_device_floorplan.py's framing
+    cfg = DeviceFloorplanConfig(
+        height=h, width=w, x_limits=(float(-host.points[above, 0].max()),
+                                     float(-host.points[above, 0].min())),
+        z_limits=(float(host.points[above, 2].min()), float(host.points[above, 2].max())))
+    got = run_floorplan(make_device_floorplan(cfg, ground, debug=True, device=dev), scene, dev)
+    want = run_floorplan(make_device_floorplan(cfg, ground, debug=True, device="cpu"), scene,
+                         torch.device("cpu"))
+    valid = want["valid"]
+    r = {"coord_err": max(float(np.abs(got[k][valid] - want[k][valid]).max()) for k in "xyz")}
+    for k in ("valid", "keep_stray", "keep"):
+        r[f"{k}_share"] = float(np.mean(got[k] != want[k]))
+    r["raster_share"] = float(np.mean(np.any(got["raster"] != want["raster"], axis=-1)))
+    log(f"[device_floorplan] {h}x{w} scene, {int(valid.sum())} valid points, raster "
+        f"{cfg.raster_height}x{cfg.raster_width}: {device} against the CPU: coordinates max |diff| "
+        f"{r['coord_err']:.3e} m (fail above {FP_COORD_ATOL:g}); differing valid / keep_stray / "
+        f"keep {r['valid_share']:.3e} / {r['keep_stray_share']:.3e} / {r['keep_share']:.3e} of "
+        f"points (fail above {FP_MASK_SHARE:g}); raster {r['raster_share']:.3e} of pixels (fail "
+        f"above {FP_RASTER_SHARE:g})")
+    if not (r["coord_err"] <= FP_COORD_ATOL and r["raster_share"] <= FP_RASTER_SHARE
+            and max(r[f"{k}_share"] for k in ("valid", "keep_stray", "keep")) <= FP_MASK_SHARE):
+        raise AssertionError(f"device_floorplan: {device} disagrees with the CPU: {r}")
+
+    # tests/test_device_floorplan.py's gates, on the device's outputs against the host chain
+    valid = got["valid"]
+    dev_pts = np.stack([got[k][valid] for k in "xyz"], axis=-1)
+    r["host_coord_err"] = float(np.abs(dev_pts - host.points).max()) if valid.sum() == len(
+        host.points) else float("inf")
+    keep_host = host_keep(remove_stray_points, host.points)
+    keep_dev = got["keep_stray"][valid]
+    r["stray_dropped"] = int((keep_host & ~keep_dev).sum())
+    r["stray_extra"] = float((~keep_host & keep_dev).sum() / max(valid.sum(), 1))
+    # the shadow filter alone: nb_points=1 keeps every point through the stray stage
+    shadow = run_floorplan(make_device_floorplan(dataclasses.replace(cfg, stray_nb_points=1),
+                                                 ground, debug=True, device=dev), scene, dev)
+    r["shadow_mismatch"] = float(np.mean(host_keep(clean_shadows, host.points)
+                                         != shadow["keep"][shadow["valid"]]))
+    plan = fast_floorplan_image(clean_shadows(remove_stray_points(host)), None,
+                                height_threshold=cfg.height_threshold, x_limits=cfg.x_limits,
+                                z_limits=cfg.z_limits, width=cfg.raster_width)
+    plan = plan.astype(np.float32) / 255.0
+    bg_h = np.abs(plan - 0.94).max(-1) < 0.02
+    bg_d = np.abs(got["raster"] - 0.94).max(-1) < 0.02
+    r["bg_missing"] = float((~bg_h & bg_d).mean())
+    r["bg_differ"] = float((bg_h != bg_d).mean())
+    both = ~bg_h & ~bg_d
+    r["color_p95"] = float(np.percentile(np.abs(plan - got["raster"]).max(-1)[both], 95))
+    log(f"[device_floorplan] {device} against the host chain (tests/test_device_floorplan.py's "
+        f"gates): valid points {int(valid.sum())} / host {len(host.points)}, coordinates max |diff| "
+        f"{r['host_coord_err']:.3e} m (fp32 against float64, not gated); stray filter drops "
+        f"{r['stray_dropped']} host-kept points (fail above 0), keeps {r['stray_extra']:.4f} extra "
+        f"(fail above {STRAY_EXTRA}); shadow mismatch {r['shadow_mismatch']:.4f} (fail above "
+        f"{SHADOW_MISMATCH}); raster: host-drawn pixels left background {r['bg_missing']:.4f} "
+        f"(fail above {BG_MISSING}), background differs {r['bg_differ']:.4f} (fail above "
+        f"{BG_DIFFER}), colour p95 {r['color_p95']:.4f} (fail above {COLOR_P95})")
+    if not (valid.sum() == len(host.points) and r["stray_dropped"] == 0
+            and r["stray_extra"] < STRAY_EXTRA and r["shadow_mismatch"] < SHADOW_MISMATCH
+            and r["bg_missing"] < BG_MISSING and r["bg_differ"] < BG_DIFFER
+            and r["color_p95"] < COLOR_P95):
+        raise AssertionError(f"device_floorplan: a gate against the host chain failed: {r}")
+    return r, cfg
+
+
+def phase_device_floorplan(scene: dict) -> None:
+    """The floor-plan program on the card: agreement (``check_device_floorplan``),
+    then ms per frame at subsample 1 and 2 and the peak memory it adds."""
+    ground = pipeline.compute_ground_from_frame(scene["depth"], scene["f_px"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, cfg = check_device_floorplan(scene, ground, "cuda")
+    args = (torch.from_numpy(scene["depth"]).cuda(), torch.from_numpy(scene["image"]).cuda(),
+            torch.tensor(scene["f_px"], dtype=torch.float32, device="cuda"))
+    times, kernels = {}, {}
+    for s in (1, 2):
+        fn = make_device_floorplan(dataclasses.replace(cfg, subsample=s), ground, device="cuda")
+        times[s] = median_ms(lambda: fn(*args), iters=10, calls=2)
+        kernels[s] = kernel_times(lambda: fn(*args), calls=5)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    dev = {s: sum(ms for _, ms in rows) for s, rows in kernels.items()}
+    log(f"[device_floorplan] {scene['depth'].shape[0]}x{scene['depth'].shape[1]} frame, raster "
+        f"{cfg.raster_height}x{cfg.raster_width}: {times[1]:.3f} ms at subsample 1, {times[2]:.3f} "
+        f"ms at subsample 2 (CUDA events, median over runs of 2 back-to-back calls, inputs on the "
+        f"card); the profiler's device time {dev[1]:.3f} / {dev[2]:.3f} ms in "
+        f"{len(kernels[1])} / {len(kernels[2])} distinct kernels; peak memory allocated "
+        f"{peak:.3f} GiB above the phase's start; on {card()}")
+    for name, ms in kernels[1][:8]:  # where the device time goes at subsample 1
+        log(f"[device_floorplan kernel] {ms:8.3f} ms {ms / dev[1]:7.2%}  {name[:110]}")
+
+
+def phase_pipeline_device(host_fps: float) -> dict:
+    """``depth-pro-video-torch --geometry device`` over the pipeline phase's
+    frames: first without ``ground.json`` (launches and files checked), then
+    with the ground and framing cached, beside the host geometry with the
+    ground cached, each timed as a whole run."""
+    from PIL import Image
+
+    frames = PIPELINE_DIR / "frames"
+    (frames / "ground.json").unlink()
+    geometry = []
+    real_frame = pipeline.process_single_frame
+
+    def timed_frame(*args, **kwargs):
+        ok, dt = real_frame(*args, **kwargs)
+        geometry.append(dt)
+        return ok, dt
+
+    def run(out: str, *flags) -> float:
+        geometry.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_pipeline.main(["--frames_dir", str(frames), "--output_dir", str(PIPELINE_DIR / out),
+                           "--batch_size", str(BATCH), "--num_workers", "4", *flags,
+                           "--device", "cuda"])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    pipeline.process_single_frame = timed_frame
+    try:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        wall = run("plans_device", "--geometry", "device")
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        geo = statistics.median(geometry)
+        cached = run("plans_device_cached", "--geometry", "device")
+        geo_cached = statistics.median(geometry)
+        host_cached = run("plans_host_cached", "--renderer", "fast", *shape_flags()[0])
+        geo_host = statistics.median(geometry)
+    finally:
+        pipeline.process_single_frame = real_frame
+    forwards = pipeline_forwards(PIPELINE_FRAMES)
+    log(f"[pipeline_device] depth-pro-video-torch --geometry device, large preset, bf16, batch "
+        f"{BATCH}, 4 workers: {PIPELINE_FRAMES} frames of 1080x1920, {forwards} forwards, "
+        f"launches {launches}; peak memory allocated {peak:.3f} GiB (the model, its batches and "
+        f"up to 4 frames' programs at once)")
+    plans = PIPELINE_DIR / "plans_device"
+    progress = json.loads((plans / "processing_progress.json").read_text())
+    names = [f"output_{i:06d}.png" for i in range(PIPELINE_FRAMES)]
+    failed = [n for n in names if not progress.get(n, {}).get("success")]
+    limits = json.loads((frames / "floorplan_limits.json").read_text())
+    model = json.loads((frames / "ground.json").read_text())
+    if failed or not limits.get("fingerprint") or not all(
+            math.isfinite(v) for v in [*model["normal"], model["d"], *limits["x_limits"],
+                                       *limits["z_limits"]]):
+        raise AssertionError(f"pipeline_device: failed frames {failed}, limits {limits}, "
+                             f"ground {model}")
+    size = (DeviceFloorplanConfig(1080, 1920, tuple(limits["x_limits"]),
+                                  tuple(limits["z_limits"])).raster_height, 1024, 3)
+    for n in names:
+        img = np.asarray(Image.open(plans / n.replace(".png", "_clean_simple_view.png")))
+        if img.shape != size or img.dtype != np.uint8:
+            raise AssertionError(f"pipeline_device: {n}'s plan is {img.shape} {img.dtype}, "
+                                 f"not the raster's {size}")
+    want = {name: n * forwards for name, n in PER_FORWARD["exact"].items()}
+    if launches != want:
+        raise AssertionError(f"pipeline_device: kernel launches {launches} != {want}")
+    log(f"[pipeline_device] {PIPELINE_FRAMES} successes, floorplan_limits.json with its "
+        f"fingerprint (x {[round(v, 3) for v in limits['x_limits']]}, z "
+        f"{[round(v, 3) for v in limits['z_limits']]}), {PIPELINE_FRAMES} plans of {size}")
+    log(f"[pipeline_device] frames/s over the whole run (ground fit included): device geometry "
+        f"{PIPELINE_FRAMES / wall} ({wall:.3f} s), host geometry {host_fps} (the pipeline phase); "
+        f"with the ground cached: device geometry {PIPELINE_FRAMES / cached} ({cached:.3f} s), "
+        f"host geometry {PIPELINE_FRAMES / host_cached} ({host_cached:.3f} s); geometry median "
+        f"per frame: device {geo:.4f} s (cached run {geo_cached:.4f} s), host {geo_host:.4f} s; "
+        f"on {card()}")
     shutil.rmtree(PIPELINE_DIR)
+    return launches
+
+
+def phase_effect(scene: dict) -> dict:
+    """Parallax frames and the anaglyph at 1080x1920, the card against the
+    CPU path, then ``depth-pro-effect-torch`` end to end on one PNG."""
+    import cv2
+    from PIL import Image
+
+    image, depth = scene["image"], scene["depth"]
+    duration, fps = EFFECT_FRAMES
+    total = int(duration * fps)
+    phases = 2.0 * np.pi * np.arange(total, dtype=np.float32) / total
+    few = [0, total // 3, 2 * total // 3]
+    dn = (depth - depth.min()) / max(depth.max() - depth.min(), 1e-9)
+    img_t, dn_t = torch.from_numpy(image.astype(np.float32)), torch.from_numpy(dn)
+    img_c, dn_c = img_t.cuda(), dn_t.cuda()
+    for motion in parallax.MOTIONS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = parallax.parallax_frames(image, depth, duration, fps, 0.05, motion, device="cuda")
+        wall = time.perf_counter() - t0
+        want = parallax._parallax_chunk(img_t, dn_t, 0.05, torch.from_numpy(phases[few]),
+                                        motion).numpy()
+        diff = np.abs(got[few].astype(np.int16) - want)
+        ts = torch.from_numpy(phases).cuda()
+        render = median_ms(lambda: parallax._parallax_chunk(img_c, dn_c, 0.05, ts, motion),
+                           iters=5, calls=1) / total
+        log(f"[effect] parallax {motion}, {total} frames of 1080x1920: card against the CPU on "
+            f"phases {few}: max |diff| {int(diff.max())}, {np.mean(diff > 0):.3e} of values "
+            f"differ (fail above 1 or {EFFECT_SHARE:g}); {wall / total * 1e3:.3f} ms per frame "
+            f"end to end (upload, render, fetch), {render:.3f} ms per frame rendering (CUDA "
+            f"events); on {card()}")
+        if diff.max() > 1 or np.mean(diff > 0) > EFFECT_SHARE:
+            raise AssertionError(f"effect: parallax {motion} on the card disagrees with the CPU")
+    got = parallax.anaglyph_image(image, depth, 0.05, device="cuda")
+    diff = np.abs(got.astype(np.int16) - parallax.anaglyph_image(image, depth, 0.05, "cpu"))
+    dx = torch.tensor(0.05 * image.shape[1], device="cuda")
+    ana_ms = median_ms(lambda: parallax._anaglyph(img_c, dn_c, dx), iters=10)
+    log(f"[effect] anaglyph 1080x1920: card against the CPU: max |diff| {int(diff.max())}, "
+        f"{np.mean(diff > 0):.3e} of values differ; {ana_ms:.3f} ms (CUDA events)")
+    if diff.max() > 1 or np.mean(diff > 0) > EFFECT_SHARE:
+        raise AssertionError("effect: the anaglyph on the card disagrees with the CPU")
+    shutil.rmtree(EFFECT_DIR, ignore_errors=True)
+    EFFECT_DIR.mkdir(parents=True)
+    backend = parallax.write_video(str(EFFECT_DIR / "direct.mp4"), got[None].repeat(2, 0), fps)
+    if backend != "cv2":
+        raise AssertionError(f"effect: write_video encoded with {backend}, not cv2")
+
+    png, mp4, ana = (EFFECT_DIR / n for n in ("frame.png", "parallax.mp4", "anaglyph.png"))
+    Image.fromarray(image).save(png)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    parallax.main(["--image_path", str(png), "--output_path", str(mp4), "--duration",
+                   str(duration), "--fps", str(fps), "--device", "cuda"])
+    t_parallax = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parallax.main(["--image_path", str(png), "--output_path", str(ana), "--effect", "anaglyph",
+                   "--device", "cuda"])
+    t_ana = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_launches()
+    cap = cv2.VideoCapture(str(mp4))
+    read = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        read.append(frame.shape)
+    cap.release()
+    plan = np.asarray(Image.open(ana))
+    want = {name: n * 2 for name, n in PER_FORWARD["exact"].items()}  # one forward per image
+    if (len(read) != total or set(read) != {(1080, 1920, 3)} or plan.shape != (1080, 1920, 3)
+            or launches != want):
+        raise AssertionError(f"effect CLI: {len(read)} frames read back (want {total}), shapes "
+                             f"{set(read)}, anaglyph {plan.shape}, launches {launches} (want "
+                             f"{want})")
+    log(f"[effect] depth-pro-effect-torch, large preset: parallax mp4 of {total} frames "
+        f"(1080x1920, cv2 reads them back) in {t_parallax:.3f} s, anaglyph PNG in {t_ana:.3f} s "
+        f"(each with the model's build and one forward); launches {launches}")
+    shutil.rmtree(EFFECT_DIR)
     return launches
 
 
@@ -881,7 +1259,11 @@ def main() -> int:
         del runner
     paths["multi_head_attention"] = phase_unpacked_entry()
     phase_speed_accuracy()
-    paths["pipeline"] = phase_pipeline(exact_fps)
+    paths["pipeline"], host_fps = phase_pipeline(exact_fps)
+    scene = structured_scene(1080, 1920, SCENE_F_PX, SEED + 8)
+    phase_device_floorplan(scene)
+    paths["pipeline_device"] = phase_pipeline_device(host_fps)
+    paths["effect"] = phase_effect(scene)
     paths["maps_cli"] = phase_maps_cli()  # last: its decode pool's processes come and go
     kernels = []
     for key, k in KERNELS.items():

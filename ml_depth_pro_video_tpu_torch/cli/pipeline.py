@@ -9,9 +9,11 @@ Same flags and behaviour as the JAX package's ``depth-pro-video``
 
 ``--video clip.mp4`` decodes the video into ``--frames_dir`` first (OpenCV
 and Pillow), skipping the decode when a complete frame set is already there.
-``--geometry device`` and the multi-host flags (``--coordinator``,
+``--geometry device`` renders each plain floor plan with the program of
+``geom/device_floorplan.py`` on ``--device`` (it implies
+``--no_fit_shapes``). The multi-host flags (``--coordinator``,
 ``--num_processes``, ``--process_id``) are accepted and raise
-``NotImplementedError`` naming their ROADMAP item (A item 6, A item 10).
+``NotImplementedError`` naming their ROADMAP item (A item 10).
 The default ``--renderer matplotlib`` and the full artifact set of
 ``--fit_shapes`` need matplotlib; shape fitting needs scikit-learn and scipy.
 """
@@ -100,9 +102,13 @@ def main(argv=None):
     ap.add_argument("--batch_size", type=int, default=1)
     ap.add_argument("--renderer", choices=["matplotlib", "fast"], default="matplotlib")
     ap.add_argument("--geometry", choices=["host", "device"], default="host",
-                    help="device: the on-card floor plan (not ported yet: ROADMAP A item 6)")
+                    help="device: run unproject/normalize/clean/splat as "
+                         "ONE device program per frame (plain floorplan "
+                         "output only; implies --no_fit_shapes — "
+                         "geom/device_floorplan.py)")
     ap.add_argument("--device_subsample", type=int, default=1,
-                    help="pixel stride for --geometry device (not ported yet)")
+                    help="pixel stride for --geometry device: 2 takes a quarter "
+                         "of the points at the same raster size")
     ap.add_argument("--speed", choices=sorted(SPEED_PRESETS), default="exact",
                     help="ToMe token-merge approximation tiers (balanced=0.25, fast=0.5 "
                          "merge ratio)")
@@ -153,7 +159,9 @@ def main(argv=None):
         height_threshold=args.height_threshold, point_size=args.point_size,
         downscale_factor=args.downscale_factor, half_precision=args.half_precision,
         start_frame=args.start_frame, end_frame=args.end_frame, pattern=args.pattern,
-        fit_shapes=args.fit_shapes,
+        # --geometry device implies --no_fit_shapes (the default
+        # fit_shapes=True would otherwise always trip the guard)
+        fit_shapes=args.fit_shapes and args.geometry != "device",
         visualize_3d=args.visualize_3d,
         num_workers=args.num_workers, simple_output=args.simple_output,
         output_all_files=args.output_all_files, resume=args.resume,
@@ -161,6 +169,7 @@ def main(argv=None):
         renderer=args.renderer, parallel=args.parallel, speed=args.speed,
         temporal_smooth=args.temporal_smooth, model=args.model,
         packed_fetch=args.packed_fetch, geometry=args.geometry,
+        device_subsample=args.device_subsample,
         x_limits=tuple(args.x_limits) if args.x_limits else None,
         z_limits=tuple(args.z_limits) if args.z_limits else None,
         device=args.device,

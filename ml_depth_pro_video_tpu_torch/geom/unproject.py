@@ -1,21 +1,38 @@
-"""Depth-map -> 3D point unprojection on the host.
+"""Depth-map -> 3D point unprojection.
 
 Pinhole unprojection with the reference's world convention
 (`img_to_normalized_pointcloud.py:819-856`): principal point at the
 image center, X negated (preserve left/right) and Y negated (Y-up
-world). The host wrapper filters invalid depths and attaches colors.
+world). ``unproject_dense`` is the dense form on tensors, on whatever
+device the depth lies; the host wrapper ``depth_to_3d`` filters invalid
+depths and attaches colors.
 
-Copy of ``depth_to_3d`` from ``ml_depth_pro_video_tpu/geom/unproject.py``
-(host code: the port imports nothing of the JAX package). The module's
-dense, device-side ``unproject_dense`` serves the device floor plan
-(``--geometry device``) and is not ported yet.
+The port's version of ``ml_depth_pro_video_tpu/geom/unproject.py``
+(``depth_to_3d`` is host code copied as it is: the port imports nothing
+of the JAX package).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .pointcloud import PointCloud
+
+
+def unproject_dense(depth: torch.Tensor, f_px) -> torch.Tensor:
+    """Dense unprojection on ``depth``'s device.
+
+    depth: (..., H, W); f_px: scalar or broadcastable to (...,).
+    Returns (..., H, W, 3) with (x, y, z) in the Y-up world frame.
+    """
+    h, w = depth.shape[-2], depth.shape[-1]
+    xs = torch.arange(w, dtype=torch.float32, device=depth.device) - w / 2.0
+    ys = torch.arange(h, dtype=torch.float32, device=depth.device) - h / 2.0
+    f = torch.as_tensor(f_px, dtype=torch.float32).to(depth.device)[..., None, None]
+    x = -xs[None, :] * depth / f
+    y = -ys[:, None] * depth / f
+    return torch.stack([x, y, depth], dim=-1)
 
 
 def depth_to_3d(depth, focallength_px, image=None, max_depth=None):

@@ -8,14 +8,17 @@ as ``ground.json``, per-frame success/timestamp resume through
 ``processing_progress.json`` (successes only, so a failed frame is
 retried), ``--force_reprocess``, a graceful stop on SIGINT, ETA reporting
 and fixed-axis framing. One resident model streams batched frames over
-the card while the host geometry of earlier frames runs on a thread pool
-(clamped to the core count, with a bounded number of frames in flight).
+the card while the geometry of earlier frames runs on a thread pool
+(clamped to the core count, with a bounded number of frames in flight):
+the host chain (``geometry="host"``), or the floor-plan program of
+``geom/device_floorplan.py`` on the runner's device (``geometry="device"``,
+plain floor plans only, its framing cached as ``floorplan_limits.json``
+beside the frames).
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: ``geometry="device"`` (the on-card floor plan, A item 6),
-a multi-host run (A item 10), and ``parallel="dp"|"latency"`` over more
-than one visible CUDA device (A item 10). With one device, ``dp`` and
-``latency`` run unsharded, as the JAX package does on one device.
+ROADMAP item: a multi-host run (A item 10), and ``parallel="dp"|"latency"``
+over more than one visible CUDA device (A item 10). With one device,
+``dp`` and ``latency`` run unsharded, as the JAX package does on one device.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from ..geom.clean import clean_shadows, remove_stray_points
+from ..geom.device_floorplan import DeviceFloorplanSession
 from ..geom.floorplan_viz import (
     fast_floorplan_image,
     fast_floorplan_visualization,
@@ -123,14 +127,23 @@ def process_single_frame(
     z_limits=None,
     renderer: str = "matplotlib",
     dpi: int = 300,
+    device_session=None,
 ) -> tuple[bool, float]:
     """Geometry + visualization for one frame (depth already computed).
     Returns (success, seconds); any error is printed and counts as a
     failed frame (per-frame fault isolation). ``dpi`` defaults to the
-    reference's 300."""
+    reference's 300. ``device_session`` (a
+    ``geom.device_floorplan.DeviceFloorplanSession``) replaces the whole
+    host geometry chain with the device program: same fault isolation,
+    same output path."""
     t0 = time.time()
     try:
         frame_name = os.path.splitext(os.path.basename(result["key"]))[0]
+        if device_session is not None:
+            plan_path = os.path.join(output_dir, f"{frame_name}_clean_simple_view.png")
+            device_session.process(result["depth"], result["image"],
+                                   result["focallength_px"], plan_path)
+            return True, time.time() - t0
         cloud = normalized_cloud_from_depth(
             result["depth"], result["focallength_px"], result["image"], ground_model
         )
@@ -211,6 +224,7 @@ def process_images_to_floor_plans(
     model: str = "large",
     packed_fetch: bool = False,
     geometry: str = "host",
+    device_subsample: int = 1,
     device="cuda",
 ):
     """Process a frame directory into per-frame floor plans on one host.
@@ -218,13 +232,18 @@ def process_images_to_floor_plans(
     Returns the ``processing_progress.json`` record: {frame file name:
     {"success": True, "timestamp": ...}} for every frame done so far.
     ``device`` is the runner's (``cuda`` by default; ignored when
-    ``runner`` is given)."""
+    ``runner`` is given); ``geometry="device"`` runs its floor-plan
+    program on the runner's device, ``device_subsample`` its pixel
+    stride."""
     if geometry not in ("host", "device"):
         raise ValueError(f"geometry must be 'host' or 'device', got {geometry!r}")
-    if geometry == "device":
-        raise NotImplementedError("--geometry device (the on-card floor plan, "
-                                  "geom/device_floorplan.py) is not ported to the PyTorch "
-                                  "package yet: ROADMAP A item 6; use --geometry host")
+    if geometry == "device" and (fit_shapes or visualize_3d):
+        # the device program covers the plain floor plan only; shape
+        # fitting and 3D previews need the cleaned host cloud
+        raise ValueError(
+            "--geometry device serves the plain floorplan path; "
+            "shape fitting / 3D previews need the host cloud "
+            "(drop --fit_shapes/--visualize_3d or use --geometry host)")
     if _is_multihost():
         raise NotImplementedError(MULTIHOST_UNPORTED)
     output_dir = output_dir or frames_dir
@@ -331,6 +350,26 @@ def process_images_to_floor_plans(
         # (~20 MB at 1536^2): an unbounded backlog runs out of memory
         inflight = threading.Semaphore(num_workers * 2)
 
+        device_session = None
+        if geometry == "device":
+            ignored = [f for f, on in (
+                ("--renderer fast", renderer == "fast"),
+                ("--point_size", point_size != 10),
+                ("--simple_output", simple_output)) if on]
+            if ignored:
+                # the device raster draws with a fixed radius-1 splat;
+                # silence about dropped flags would read as a bug
+                print("--geometry device renders the fixed-style device "
+                      f"raster; ignoring: {', '.join(ignored)}")
+            device_session = DeviceFloorplanSession(
+                ground_model, height_threshold=height_threshold,
+                x_limits=x_limits, z_limits=z_limits,
+                # the derived framing persists next to ground.json, so a
+                # --resume run keeps frame 0's scale and offset instead of
+                # re-deriving them from the first unprocessed frame
+                limits_cache=os.path.join(frames_dir, "floorplan_limits.json"),
+                subsample=device_subsample, device=runner.device)
+
         def handle(result):
             nonlocal n_done
             try:
@@ -340,6 +379,7 @@ def process_images_to_floor_plans(
                     fit_shapes=fit_shapes, visualize_3d=visualize_3d,
                     simple_output=simple_output, output_all_files=output_all_files,
                     x_limits=x_limits, z_limits=z_limits, renderer=renderer,
+                    device_session=device_session,
                 )
             finally:
                 inflight.release()

@@ -59,6 +59,12 @@ class VideoSink:
         self._writer = imageio.get_writer(self.path, fps=self.fps)
         self._backend = "imageio"
 
+    @property
+    def backend(self) -> str | None:
+        """The encoder writing the file, ``"cv2"`` or ``"imageio"`` (None
+        before the first frame)."""
+        return self._backend
+
     def append(self, frame: np.ndarray) -> None:
         frame = np.ascontiguousarray(frame)
         if frame.ndim != 3 or frame.shape[2] != 3:

@@ -28,15 +28,19 @@ warm-up stream.
 With ``--pipeline N`` it runs the frames -> depth -> floor-plan pipeline
 (``video/pipeline.py::process_images_to_floor_plans``, as
 ``depth-pro-video-torch`` calls it) over N PNG frames of 1080x1920 from seed 0
-on one exact ``large`` runner at batch 2, 4 geometry workers, the fast
-renderer (shape fitting where scikit-learn imports): a first run fits and
-caches ``ground.json`` (and builds the host geometry's C++ library), a
-second and third read frames/s, when the first and last frame's geometry
-started and the geometry seconds per frame with the ground cached, first
-with the runner's own choice of decode pool (processes on 4 or more
-cores), then with threads; a last one runs under the profiler for the
-device's idle share and time by kernel group over the same window as above. Without
-``--speed`` it then skips the tiers.
+on one exact ``large`` runner at batch 2 with 4 geometry workers: a first run
+with the host geometry fits and caches ``ground.json`` (and builds the host
+geometry's C++ library). Then, for each geometry that ``--geometry host
+device`` names (default host): the host chain with the fast renderer (shape
+fitting where scikit-learn imports), or the device floor-plan program (after
+one run that derives and caches its framing), two runs read frames/s, when
+the first and last frame's geometry started and the geometry seconds per
+frame with the ground cached, first with the runner's own choice of decode
+pool (processes on 4 or more cores), then with threads; for the device
+geometry the program's own ms per frame follows (CUDA events on one frame's
+depth); a last run under the profiler gives the device's idle share and time
+by kernel group over the same window as above. Without ``--speed`` it then
+skips the tiers.
 
 Every line carries the card's name and power limit as nvidia-smi prints them.
 The profiler's own host cost makes the idle share an upper bound for the
@@ -203,25 +207,57 @@ def post_ops(where: str) -> None:
               f"{fetch}: {fps} frames/s over {SWEEP_FRAMES} frames on {where}", flush=True)
 
 
-def pipeline_profile(n_frames: int, where: str) -> None:
+def pipeline_kwargs(geometry: str, fit_shapes: bool) -> dict:
+    """``process_images_to_floor_plans``'s options for one geometry: the host
+    chain with the fast renderer (shape fitting where scikit-learn imports,
+    without its extra files), or the device program (plain floor plans only,
+    so no shape fitting)."""
+    if geometry == "device":
+        return {"geometry": "device", "fit_shapes": False}
+    return {"geometry": "host", "renderer": "fast", "fit_shapes": fit_shapes,
+            "output_all_files": False}
+
+
+def event_ms(fn, iters: int = 10) -> float:
+    """Median time of one call of ``fn`` on the card (CUDA events), after a warm-up call."""
+    fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def pipeline_profile(n_frames: int, where: str, geometries: list) -> None:
     import importlib.util
 
     from PIL import Image
 
+    from ml_depth_pro_video_tpu_torch.geom.device_floorplan import DeviceFloorplanSession
     from ml_depth_pro_video_tpu_torch.video import pipeline
 
     runner = DepthVideoRunner(cfg=model_preset("large"), precision="bf16",
                               batch_size=PROFILE_BATCH, rng_seed=0, device="cuda")
     fit_shapes = importlib.util.find_spec("sklearn") is not None
+    own_pool = runner.decode_pool
     starts: list = []   # each frame's geometry start, seconds after its run began
     geometry: list = []
-    real_frame = pipeline.process_single_frame
+    seen: dict = {}     # the device session and one frame's inputs to its program
+    real_frame, real_process = pipeline.process_single_frame, DeviceFloorplanSession.process
 
     def timed_frame(*args, **kwargs):
         starts.append(time.perf_counter() - run_start[0])
         ok, dt = real_frame(*args, **kwargs)
         geometry.append(dt)
         return ok, dt
+
+    def recording_process(self, depth, image, f_px, output_path):
+        seen.update(session=self, args=(depth, image, f_px))
+        return real_process(self, depth, image, f_px, output_path)
 
     run_start = [0.0]
     with tempfile.TemporaryDirectory() as tmp:
@@ -232,49 +268,64 @@ def pipeline_profile(n_frames: int, where: str) -> None:
             Image.fromarray(rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)).save(
                 frames / f"output_{i:06d}.png")
 
-        def run(out: str) -> float:
+        def run(out: str, geo: str) -> float:
             starts.clear()
             geometry.clear()
             torch.cuda.synchronize()
             run_start[0] = time.perf_counter()
             done = pipeline.process_images_to_floor_plans(
                 str(frames), output_dir=str(Path(tmp) / out), batch_size=PROFILE_BATCH,
-                num_workers=4, renderer="fast", fit_shapes=fit_shapes, output_all_files=False,
-                runner=runner)
+                num_workers=4, runner=runner, **pipeline_kwargs(geo, fit_shapes))
             torch.cuda.synchronize()
             if len(done) != n_frames:
                 raise RuntimeError(f"pipeline: {len(done)} of {n_frames} frames succeeded")
             return time.perf_counter() - run_start[0]
 
-        first_s = run("first")  # fits and caches ground.json
+        first_s = run("first", "host")  # fits and caches ground.json
         print(f"[pipeline] exact, batch {PROFILE_BATCH}, 4 geometry workers, fast renderer, "
               f"shape fitting {'on' if fit_shapes else 'off'}, {n_frames} frames of 1080x1920: "
               f"first run (ground fit) {first_s:.3f} s on {where}", flush=True)
         pipeline.process_single_frame = timed_frame
+        DeviceFloorplanSession.process = recording_process
         try:
-            # the runner's decode pool is read per stream: its own choice, then threads
-            for pool in (runner.decode_pool, "thread"):
-                runner.decode_pool = pool
-                wall = run(f"timed_{pool}")
-                times = sorted(geometry)
-                print(f"[pipeline] ground cached, {pool} decode pool: {n_frames / wall} frames/s "
-                      f"({wall:.3f} s); first geometry start {min(starts):.3f} s, last "
-                      f"{max(starts):.3f} s; geometry median {times[len(times) // 2]:.4f} s per "
-                      f"frame (min {times[0]:.4f}, max {times[-1]:.4f}) on {where}", flush=True)
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                prof_wall = run("profiled")
+            for geo in geometries:
+                if geo == "device":  # derives and caches the framing: floorplan_limits.json
+                    print(f"[pipeline] geometry device: first run (framing) "
+                          f"{run('framing', geo):.3f} s", flush=True)
+                # the runner's decode pool is read per stream: its own choice, then threads
+                for pool in (own_pool, "thread"):
+                    runner.decode_pool = pool
+                    wall = run(f"timed_{geo}_{pool}", geo)
+                    times = sorted(geometry)
+                    print(f"[pipeline] geometry {geo}, ground cached, {pool} decode pool: "
+                          f"{n_frames / wall} frames/s ({wall:.3f} s); first geometry start "
+                          f"{min(starts):.3f} s, last {max(starts):.3f} s; geometry median "
+                          f"{times[len(times) // 2]:.4f} s per frame (min {times[0]:.4f}, max "
+                          f"{times[-1]:.4f}) on {where}", flush=True)
+                if geo == "device":
+                    session = seen["session"]
+                    args = [torch.as_tensor(a).cuda() for a in seen["args"]]
+                    ms = event_ms(lambda: session._fn(*args))
+                    print(f"[pipeline] device floor-plan program: {ms:.3f} ms per frame (CUDA "
+                          f"events, median of 10 calls on one frame's depth, subsample "
+                          f"{session.subsample}, raster {session.cfg.raster_height}x"
+                          f"{session.cfg.raster_width}) on {where}", flush=True)
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    prof_wall = run(f"profiled_{geo}", geo)
+                trace = Path(tmp) / f"trace_{geo}.json"
+                prof.export_chrome_trace(str(trace))
+                rep = breakdown(trace, -(-n_frames // PROFILE_BATCH))
+                print(f"[pipeline] geometry {geo} under the profiler (thread decode pool): "
+                      f"{n_frames / prof_wall} frames/s; window without the first and last "
+                      f"batch: {rep['window_ms']:.3f} ms; device busy {rep['busy_ms']:.3f} ms; "
+                      f"idle share {rep['idle_share']:.4f}")
+                for label, us in rep["by_group"]:
+                    print(f"[pipeline group] {geo}: {us / 1e3:10.3f} ms "
+                          f"{us / 1e3 / rep['summed_ms']:7.2%}  {label}")
         finally:
             pipeline.process_single_frame = real_frame
-        trace = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        n_batches = -(-n_frames // PROFILE_BATCH)
-        rep = breakdown(trace, n_batches)
-    print(f"[pipeline] under the profiler ({pool} decode pool): {n_frames / prof_wall} frames/s; "
-          f"window without the first and last batch: {rep['window_ms']:.3f} ms; device busy "
-          f"{rep['busy_ms']:.3f} ms; idle share {rep['idle_share']:.4f}")
-    for label, us in rep["by_group"]:
-        print(f"[pipeline group] {us / 1e3:10.3f} ms {us / 1e3 / rep['summed_ms']:7.2%}  {label}")
+            DeviceFloorplanSession.process = real_process
 
 
 def main(argv=None) -> int:
@@ -286,6 +337,9 @@ def main(argv=None) -> int:
                     help="also time the temporal smoother and the packed fetch")
     ap.add_argument("--pipeline", type=int, default=0, metavar="FRAMES",
                     help="also time and profile the floor-plan pipeline over FRAMES frames")
+    ap.add_argument("--geometry", nargs="+", choices=["host", "device"], default=["host"],
+                    help="the pipeline's geometry: the host chain, the device floor-plan "
+                         "program, or both in turn (default: host)")
     args = ap.parse_args(argv)
     if args.speed is None:
         args.speed = [] if args.pipeline else ["exact"]
@@ -298,7 +352,7 @@ def main(argv=None) -> int:
     if args.post_ops:
         post_ops(where)
     if args.pipeline:
-        pipeline_profile(args.pipeline, where)
+        pipeline_profile(args.pipeline, where, args.geometry)
     return 0
 
 

@@ -3,7 +3,10 @@
 ``PERF.md`` quotes, so that the documented bounds cannot drift from the code
 that prints them. Shapes only: the tensors live on the ``meta`` device. And
 the ``maps`` phase's arithmetic: the share of pixels outside the packed
-bound, the host-twin reference and its blended share, the noisy frames.
+bound, the host-twin reference and its blended share, the noisy frames. And
+the on-card geometry phases' CPU side: the structured scene, the host
+filters' keep masks, the floor-plan checks run with the CPU on both sides at
+a small size, and the launches the device pipeline and the effect expect.
 """
 
 import numpy as np
@@ -159,3 +162,51 @@ def test_shape_flags_follow_scikit_learn(monkeypatch):
     monkeypatch.delitem(__import__("sys").modules, "sklearn", raising=False)
     flags, why = chip_smoke.shape_flags()
     assert flags == ["--no_fit_shapes"] and "does not import" in why
+
+
+def test_structured_scene_is_finite_and_of_the_frame_shape():
+    scene = chip_smoke.structured_scene(90, 160, chip_smoke.SCENE_F_PX * 160 / 1920, 8)
+    assert scene["image"].shape == (90, 160, 3) and scene["image"].dtype == np.uint8
+    assert scene["depth"].shape == (90, 160) and scene["depth"].dtype == np.float32
+    assert np.isfinite(scene["depth"]).all() and (scene["depth"] > 0).all()
+    # a room a few metres deep, not the 136 m - 1e4 m of random weights
+    assert 1.0 < scene["depth"].min() and scene["depth"].max() < 8.5
+    assert len(np.unique(scene["image"].reshape(-1, 3), axis=0)) >= 4  # floor, wall, boxes
+
+
+def test_host_keep_follows_each_point_through_the_filter():
+    from ml_depth_pro_video_tpu_torch.geom.pointcloud import PointCloud
+
+    points = np.random.default_rng(0).random((50, 3))
+    drop = points[:, 1] > 0.5
+
+    def keep_low(cloud):
+        return PointCloud(cloud.points[::-1][~drop[::-1]], cloud.colors[::-1][~drop[::-1]])
+
+    np.testing.assert_array_equal(chip_smoke.host_keep(keep_low, points), ~drop)
+
+
+def test_floorplan_checks_on_the_cpu():
+    """The device_floorplan phase's checks with the CPU in the card's place, at
+    270x480: the two sides agree exactly and the host-chain gates pass."""
+    from ml_depth_pro_video_tpu_torch.video import pipeline
+
+    scene = chip_smoke.structured_scene(270, 480, chip_smoke.SCENE_F_PX / 4, chip_smoke.SEED + 8)
+    ground = pipeline.compute_ground_from_frame(scene["depth"], scene["f_px"])
+    r, cfg = chip_smoke.check_device_floorplan(scene, ground, "cpu")
+    assert r["coord_err"] == 0 and r["raster_share"] == 0
+    assert r["valid_share"] == r["keep_stray_share"] == r["keep_share"] == 0
+    assert r["stray_dropped"] == 0 and r["stray_extra"] < chip_smoke.STRAY_EXTRA
+    assert cfg.raster_width == 1024 and cfg.height == 270
+
+
+def test_device_pipeline_and_effect_expect_the_exact_launches():
+    """pipeline_device: frame 0 alone for the ground fit, then 7 frames in 4
+    batches; effect: one forward per image, the parallax PNG and the anaglyph."""
+    forwards = chip_smoke.pipeline_forwards(chip_smoke.PIPELINE_FRAMES)
+    assert {k: n * forwards for k, n in chip_smoke.PER_FORWARD["exact"].items()} == {
+        "K1": 360, "K2": 15, "K3": 0, "K4": 0}
+    assert {k: n * 2 for k, n in chip_smoke.PER_FORWARD["exact"].items()} == {
+        "K1": 144, "K2": 6, "K3": 0, "K4": 0}
+    duration, fps = chip_smoke.EFFECT_FRAMES
+    assert int(duration * fps) == 8

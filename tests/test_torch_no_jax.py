@@ -35,7 +35,8 @@ def test_port_covers_the_slice_modules():
                  "video.decode", "video.writer", "video.pipeline", "cli.run",
                  "cli.generate_depth_maps", "cli.smooth_depth", "cli.pipeline", "io.image",
                  "native", "geom.pointcloud", "geom.unproject", "geom.ground", "geom.clean",
-                 "geom.shapes", "geom.floorplan_viz", "geom.render"):
+                 "geom.shapes", "geom.floorplan_viz", "geom.render", "geom.device_floorplan",
+                 "effects.parallax"):
         assert f"ml_depth_pro_video_tpu_torch.{name}" in mods
 
 

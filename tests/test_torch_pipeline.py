@@ -10,7 +10,10 @@ and a floor-plan or preview PNG may differ in at most ``PNG_SHARE`` of its
 pixels (a few splats may move); the progress record has the same keys. Then
 the JAX package's pipeline tests of resume, the frame range, retrying a
 failed frame and the fast renderer run on the port, the CLI runs once, and
-the modes that are not ported yet raise with their ROADMAP item.
+the modes that are not ported yet raise with their ROADMAP item. With
+``geometry="device"`` (the floor-plan program on the runner's device, here
+the CPU) both packages' plans agree within ``PNG_SHARE`` and their
+``floorplan_limits.json`` are equal.
 """
 
 import dataclasses
@@ -260,12 +263,6 @@ def test_cli_multihost_flags_raise(flag, frames_dir):
 
 
 def test_unported_modes_raise(port_runner, frames_dir, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 6"):
-        tpipeline.process_images_to_floor_plans(frames_dir, geometry="device",
-                                                fit_shapes=False, runner=port_runner)
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 6"):
-        cli_pipeline.main(["--frames_dir", frames_dir, "--geometry", "device",
-                           "--device", "cpu"])
     with pytest.raises(ValueError, match="geometry"):
         tpipeline.process_images_to_floor_plans(frames_dir, geometry="gpu", runner=port_runner)
     for parallel in ("dp", "latency"):  # more than one visible card
@@ -294,3 +291,73 @@ def test_pipeline_on_an_empty_directory(port_runner, tmp_path, capsys):
     assert tpipeline.process_images_to_floor_plans(str(empty), runner=port_runner) == {}
     assert "No images to process" in capsys.readouterr().out
     shutil.rmtree(empty)
+
+
+def test_device_geometry_matches_jax(checkpoint, port_runner, tmp_path, monkeypatch):
+    """Both packages' ``geometry="device"`` on one npz: the same files, plans
+    within PNG_SHARE, equal framing files; frame 0's ground-fit inference is
+    reused as with the host geometry."""
+    jax_runner = JaxRunner(cfg=dataclasses.replace(j_tiny_config(), checkpoint_uri=checkpoint),
+                           precision="fp32", batch_size=2, decode_workers=1)
+    out = {}
+    for name, pipeline, runner in (("jax", jpipeline, jax_runner),
+                                   ("port", tpipeline, port_runner)):
+        frames = _write_frames(tmp_path / f"frames_{name}")
+        out[name] = (frames, str(tmp_path / f"out_{name}"))
+        counts = _count_inferred(runner, monkeypatch) if name == "port" else None
+        done = pipeline.process_images_to_floor_plans(
+            frames, output_dir=out[name][1], num_workers=2, fit_shapes=False,
+            geometry="device", device_subsample=2, runner=runner)
+        assert sorted(done) == [f"output_{i:04d}.png" for i in range(3)]
+    assert sum(counts) == 3 and counts[0] == 1
+
+    limits = [json.load(open(os.path.join(out[n][0], "floorplan_limits.json")))
+              for n in ("jax", "port")]
+    assert sorted(limits[1]) == ["fingerprint", "x_limits", "z_limits"]
+    # the fingerprint names the ground plane, which each package fits to its
+    # own fp32 depth of frame 0 (within GROUND_ATOL of each other): its numbers
+    # within GROUND_ATOL, the rest equal
+    fields = [dict(f.split("=") for f in lim["fingerprint"].split(";")) for lim in limits]
+    assert fields[1]["ht"] == fields[0]["ht"] and fields[1]["md"] == fields[0]["md"]
+    for key in ("n", "d"):
+        np.testing.assert_allclose(np.asarray(fields[1][key].split(","), float),
+                                   np.asarray(fields[0][key].split(","), float),
+                                   rtol=0, atol=GROUND_ATOL)
+    # and so does the framing
+    for key in ("x_limits", "z_limits"):
+        np.testing.assert_allclose(limits[1][key], limits[0][key], rtol=1e-5, atol=1e-6)
+    names = sorted(os.listdir(out["port"][1]))
+    assert names == sorted(os.listdir(out["jax"][1]))
+    pngs = [n for n in names if n.endswith(".png")]
+    assert pngs == [f"output_{i:04d}_clean_simple_view.png" for i in range(3)]
+    for n in pngs:
+        want = np.asarray(Image.open(os.path.join(out["jax"][1], n)))
+        got = np.asarray(Image.open(os.path.join(out["port"][1], n)))
+        assert got.shape == want.shape and got.shape[1] == 1024, n
+        assert np.mean(np.any(got != want, axis=-1)) <= PNG_SHARE, n
+
+
+def test_device_geometry_refuses_host_cloud_modes(port_runner, frames_dir):
+    """Shape fitting and 3D previews need the host cloud: ValueError, as in
+    the JAX package, before anything runs."""
+    for flags in ({"fit_shapes": True}, {"fit_shapes": False, "visualize_3d": True}):
+        with pytest.raises(ValueError, match="fit_shapes"):
+            tpipeline.process_images_to_floor_plans(frames_dir, geometry="device",
+                                                    runner=port_runner, **flags)
+    assert not os.path.exists(os.path.join(frames_dir, "ground.json"))
+
+
+def test_cli_device_geometry_on_the_cpu(frames_dir, tmp_path, capsys):
+    """``depth-pro-video-torch --geometry device`` (shape fitting implied off)
+    with the tiny preset on the CPU; ignored host-renderer flags are named."""
+    out = str(tmp_path / "cli_device")
+    cli_pipeline.main(["--frames_dir", frames_dir, "--output_dir", out, "--model", "tiny",
+                       "--full_precision", "--batch_size", "2", "--num_workers", "2",
+                       "--geometry", "device", "--renderer", "fast", "--device", "cpu"])
+    assert "ignoring: --renderer fast" in capsys.readouterr().out
+    progress = json.load(open(os.path.join(out, "processing_progress.json")))
+    assert sorted(progress) == [f"output_{i:04d}.png" for i in range(3)]
+    plans = sorted(glob.glob(os.path.join(out, "*_clean_simple_view.png")))
+    assert len(plans) == 3
+    assert all(np.asarray(Image.open(p)).shape[1:] == (1024, 3) for p in plans)
+    assert os.path.exists(os.path.join(frames_dir, "floorplan_limits.json"))

@@ -71,3 +71,19 @@ def test_speed_option_takes_the_presets_only(capsys):
     with pytest.raises(SystemExit):
         prof.main(["--speed", "fastest"])
     assert "invalid choice" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("sklearn,want", [(True, True), (False, False)])
+def test_pipeline_kwargs_per_geometry(sklearn, want):
+    """The host chain takes the fast renderer and shape fitting where
+    scikit-learn imports; the device program never fits shapes."""
+    assert prof.pipeline_kwargs("host", sklearn) == {
+        "geometry": "host", "renderer": "fast", "fit_shapes": want, "output_all_files": False}
+    assert prof.pipeline_kwargs("device", sklearn) == {"geometry": "device",
+                                                        "fit_shapes": False}
+
+
+def test_geometry_option_takes_host_and_device(capsys):
+    with pytest.raises(SystemExit):
+        prof.main(["--pipeline", "4", "--geometry", "gpu"])
+    assert "invalid choice" in capsys.readouterr().err
