@@ -87,6 +87,34 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``depth-pro-effect-torch`` on one PNG: an mp4 that ``cv2.VideoCapture``
    reads back with ``duration*fps`` frames, and the anaglyph PNG (72 K1 and 3
    K2 per image);
+6d. serve: ``create_server`` (``serve/server.py``) at the ``large`` preset,
+   bf16, ``max_batch=4``, ``max_wait_ms=30``, warm-up on, ``port=0``, driven
+   from this process by ``urllib`` clients over one 1080x1920 PNG of the
+   structured scene: 8 lone requests (concurrency 1, each padded to a batch
+   of 4), 32 at concurrency 8, an ``npz`` and a ``png16`` request and a
+   4-frame ``session`` stream (``smooth=0.8``) beside its unsmoothed
+   responses. Every response must be 200 with depth of (1080, 1920), finite
+   and positive; the npz's min and max equal the json's, the png16 decodes
+   with its three headers; ``/metrics`` counts every request sent and as many
+   batches as forwards, each forward launching 72 K1 and 3 K2 (the warm-up's
+   forward counted apart); no process starts while serving; the session
+   stream equals the host twin of the smoother over the unsmoothed
+   responses; a lone request's depth agrees with ``runner.infer_one`` on the
+   host-canonicalised frame, resized back the same way, within
+   ``SERVE_REF_BOUND`` of scale. Then latency p50 / p95 at concurrency 1 and
+   8, requests/s at 8, the batch fill ratio, the host's share per request
+   (PNG decode, canonical resize, resize back, npz and png16 encodes) and the
+   runner's per-batch pool set-up with threads (the server's) and with the
+   spawn process pool;
+6e. quantize: the runner with ``quantize=True`` (large, bf16, batch 2):
+   ``torch.cuda.memory_allocated()`` after its build beside the serve
+   runner's (fp32 master weights), the saving against
+   ``quantized_saving``; 72 K1 and 3 K2 per forward; its canonical inverse
+   depth on one frame against the unquantized runner's (median, p99, max of
+   |diff| over the scale; fail above ``QUANT_MAX_DEV``, the JAX package's TPU
+   figure printed beside it); frames/s beside the exact slice's; the tiny
+   config's int8 codes on the card equal to the CPU's, and its quantized fp32
+   forward on the card against the CPU within rtol 1e-3 / atol 1e-4;
 7. maps CLI: ``depth-pro-maps-torch`` over 4 PNG frames of 1080x1920
    (``--save_npz --packed_fetch --colormap gray16 --batch_size 2``, 72 K1 and
    3 K2 launches per forward), then ``depth-pro-smooth-torch`` over its npz
@@ -101,13 +129,19 @@ it is ``{"kernels": [...]}`` with each kernel's launches, error and times.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import io
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -123,6 +157,7 @@ from ml_depth_pro_video_tpu_torch.ckpt.params import (
     load_params,
     map_tree,
 )
+from ml_depth_pro_video_tpu_torch.ckpt.quantize import quantize_vit_weights
 from ml_depth_pro_video_tpu_torch.core.precision import Precision, disable_tf32
 from ml_depth_pro_video_tpu_torch.effects import parallax
 from ml_depth_pro_video_tpu_torch.geom.clean import clean_shadows, remove_stray_points
@@ -162,10 +197,21 @@ from ml_depth_pro_video_tpu_torch.ops.resblock import (
     residual_block_reference,
 )
 from ml_depth_pro_video_tpu_torch.ops.resize import resize2d
+from ml_depth_pro_video_tpu_torch.serve.server import (
+    canonicalize,
+    create_server,
+    encode_npz,
+    encode_png16,
+    restore,
+)
 from ml_depth_pro_video_tpu_torch.video import pipeline
 from ml_depth_pro_video_tpu_torch.video.pack import max_rel_error, pack_depth_u16, unpack_depth_u16
 from ml_depth_pro_video_tpu_torch.video.runner import DepthVideoRunner
-from ml_depth_pro_video_tpu_torch.video.temporal import _update_core_np, smooth_batch
+from ml_depth_pro_video_tpu_torch.video.temporal import (
+    TemporalSmoother,
+    _update_core_np,
+    smooth_batch,
+)
 
 SEED = 0
 BATCH = 2  # the slice's batch size: K1 sees (35*BATCH, 577, 3072) and (BATCH, 577, 3072)
@@ -220,6 +266,21 @@ STRAY_EXTRA, SHADOW_MISMATCH, BG_MISSING, BG_DIFFER, COLOR_P95 = 0.35, 0.02, 0.0
 EFFECT_SHARE = 1e-3  # of uint8 values that may differ by 1 (sin / cos differ by ulps); none by more
 EFFECT_FRAMES = (1.0, 8)  # the effect's (duration s, fps): 8 frames
 PROXY_RATIOS = (0.25, 0.5)
+SERVE_BATCH, SERVE_WAIT_MS = 4, 30.0  # the server's max_batch and max_wait_ms (its defaults)
+SERVE_LONE = 8  # sequential lone requests: the latency at concurrency 1
+SERVE_CONCURRENCY, SERVE_REQUESTS = 8, 32  # requests at concurrency 8
+SERVE_SESSION = 4  # frames of the session stream
+# a lone request against infer_one on the same canonical frame, share of scale: the same
+# batch of 4 copies through the same kernels, so only the fetch and the resizes could differ
+SERVE_REF_BOUND = 1e-4
+# the session stream against the host twin over the unsmoothed responses (relative): the
+# same numpy filter on the same depth
+SERVE_SMOOTH_BOUND = 1e-6
+QUANT_MAX_DEV = 0.05  # int8 against bf16 canonical inverse depth, share of scale (random weights)
+# the JAX package's chip figure (ckpt/quantize.py docstring): the quantization adds a median
+# 0.0002% of scale on top of the bf16 mode's own deviation; printed beside ours, not enforced
+TPU_QUANT_MEDIAN = 2e-6
+QUANT_SAVING_SLACK = 0.01  # a build's bytes beyond its parameters (the allocator's rounding), of the saving
 
 
 def log(msg: str) -> None:
@@ -1139,6 +1200,342 @@ def phase_effect(scene: dict) -> dict:
     return launches
 
 
+def vit_matmul_params(vit: ViTConfig) -> tuple[int, int]:
+    """(weights, scales) of one ViT's block matmuls: the weights that
+    ``quantize_vit_weights`` stores as int8 and their fp32 scales, one per
+    (layer, output channel)."""
+    d, hidden = vit.embed_dim, vit.mlp_ratio * vit.embed_dim
+    weights = vit.depth * (d * 3 * d + d * d + d * hidden + hidden * d)
+    scales = vit.depth * (3 * d + d + hidden + d)
+    return weights, scales
+
+
+def quantized_saving(cfg: DepthProConfig) -> int:
+    """Bytes the int8 ViTs save over the fp32 master weights: 3 of every 4
+    bytes of the block matmul weights, less the scales' 4 bytes each."""
+    weights, scales = vit_matmul_params(cfg.vit)
+    return (3 if cfg.use_fov_head else 2) * (3 * weights - 4 * scales)
+
+
+def param_bytes(runner: DepthVideoRunner) -> int:
+    return sum(nbytes(p) for p in runner.model.parameters())
+
+
+def percentiles(values: list) -> tuple[float, float]:
+    """(p50, p95), linear interpolation."""
+    p50, p95 = np.percentile(np.asarray(values, np.float64), [50, 95])
+    return float(p50), float(p95)
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus text -> {name: value} for the lines without labels."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#") and "{" not in line:
+            name, value = line.rsplit(" ", 1)
+            out[name] = float(value)
+    return out
+
+
+def post_depth(url: str, body: bytes, query: str = "") -> tuple[float, dict, bytes]:
+    """POST one image; (seconds, headers, body). A status other than 200 raises."""
+    req = urllib.request.Request(url + "/v1/depth" + query, data=body,
+                                 headers={"Content-Type": "image/png"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        headers, raw = dict(r.headers), r.read()
+    return time.perf_counter() - t0, headers, raw
+
+
+def decode_npz(raw: bytes) -> tuple[np.ndarray, dict]:
+    import base64
+
+    payload = json.loads(raw)
+    with np.load(io.BytesIO(base64.b64decode(payload["npz_base64"]))) as z:
+        return z["depth"], payload
+
+
+def check_payload(p: dict, shape: tuple, tag: str) -> None:
+    if (p["depth_shape"] != list(shape) or not 0 < p["depth_min"] <= p["depth_max"] < math.inf
+            or not math.isfinite(p["focallength_px"])):
+        raise AssertionError(f"{tag}: bad response {p}")
+
+
+def png_bytes(image: np.ndarray) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def host_ms(fn, runs: int = 5) -> float:
+    """Median host milliseconds of ``fn()`` over ``runs`` calls, after one."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def count_process_starts(fn) -> tuple[object, int]:
+    """(``fn()``, the number of ``multiprocessing`` processes started during
+    it: pool workers and other ``Process`` objects, and the resource tracker
+    that the first semaphore of a spawn context starts)."""
+    from multiprocessing import process, resource_tracker
+
+    starts = []
+    real = process.BaseProcess.start
+    tracker = resource_tracker._resource_tracker._pid
+
+    def counting(self):
+        starts.append(self)
+        return real(self)
+
+    process.BaseProcess.start = counting
+    try:
+        out = fn()
+    finally:
+        process.BaseProcess.start = real
+    started_tracker = tracker is None and resource_tracker._resource_tracker._pid is not None
+    return out, len(starts) + started_tracker
+
+
+def phase_serve(image: np.ndarray):
+    """``create_server`` at the large preset, driven over HTTP from this
+    process. Returns (launches, the server's runner, its build's bytes)."""
+    from PIL import Image
+
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    srv = create_server(port=0, model="large", max_batch=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                        warmup_shape=image.shape[:2], device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    warm = read_launches()
+    runner = srv.batcher.runner
+    built = torch.cuda.memory_allocated() - mem0
+    if warm != PER_FORWARD["exact"] or runner.decode_pool != "thread":
+        raise AssertionError(f"serve: warm-up launches {warm}, decode pool {runner.decode_pool}")
+    log(f"[serve] create_server (large, bf16, max_batch {SERVE_BATCH}, max_wait_ms "
+        f"{SERVE_WAIT_MS}, warm-up on) in {build_s:.3f} s; the warm-up's forward launched "
+        f"{warm}; memory_allocated grew {built / 2**30:.4f} GiB (parameters "
+        f"{param_bytes(runner) / 2**30:.4f} GiB, fp32 master weights)")
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    body = png_bytes(image)
+    rng = np.random.default_rng(SEED + 9)
+    stream = [png_bytes(np.clip(image.astype(np.int16) + rng.integers(-3, 4, image.shape), 0, 255)
+                        .astype(np.uint8)) for _ in range(SERVE_SESSION)]
+
+    def traffic():
+        lone, sent = [], 0
+        for _ in range(SERVE_LONE):
+            dt, _, raw = post_depth(url, body, "?return=json")
+            check_payload(json.loads(raw), image.shape[:2], "serve lone")
+            lone.append(dt)
+        sent += SERVE_LONE
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CONCURRENCY) as pool:
+            loaded = list(pool.map(lambda _: post_depth(url, body, "?return=json"),
+                                   range(SERVE_REQUESTS)))
+        wall = time.perf_counter() - t0
+        sent += SERVE_REQUESTS
+        for _, _, raw in loaded:
+            check_payload(json.loads(raw), image.shape[:2], "serve concurrency 8")
+        depth, p_npz = decode_npz(post_depth(url, body, "?return=npz")[2])
+        _, headers, raw = post_depth(url, body, "?return=png16")
+        plain = [decode_npz(post_depth(url, f, "?return=npz")[2])[0] for f in stream]
+        smoothed = [decode_npz(post_depth(url, f, "?return=npz&session=s&smooth=0.8")[2])
+                    for f in stream]
+        sent += 2 + 2 * SERVE_SESSION
+        return lone, [r[0] for r in loaded], wall, depth, p_npz, headers, raw, plain, smoothed, sent
+
+    torch.cuda.synchronize()
+    reset_launches()
+    result, starts = count_process_starts(traffic)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    lone, loaded, wall, depth, p_npz, headers, png16, plain, smoothed, sent = result
+    with urllib.request.urlopen(url + "/metrics") as r:
+        metrics = parse_metrics(r.read().decode())
+    forwards = int(metrics["depthpro_batches_total"])
+    want = {name: n * forwards for name, n in PER_FORWARD["exact"].items()}
+    log(f"[serve] {sent} requests of one {image.shape[0]}x{image.shape[1]} PNG, {forwards} forwards (/metrics), "
+        f"launches {launches}, processes started {starts}")
+    if metrics["depthpro_requests_total"] != sent or metrics["depthpro_request_errors_total"]:
+        raise AssertionError(f"serve: /metrics counts {metrics['depthpro_requests_total']} "
+                             f"requests, {metrics['depthpro_request_errors_total']} errors; "
+                             f"{sent} sent")
+    if launches != want or starts:
+        raise AssertionError(f"serve: launches {launches} != {want}, or {starts} processes")
+
+    if (depth.shape != image.shape[:2] or not np.isfinite(depth).all() or not (depth > 0).all()
+            or float(depth.min()) != p_npz["depth_min"] or float(depth.max()) != p_npz["depth_max"]):
+        raise AssertionError(f"serve: npz depth {depth.shape} against json {p_npz}")
+    img16 = np.asarray(Image.open(io.BytesIO(png16)))
+    scale = [float(headers[k]) for k in ("X-Depth-Min", "X-Depth-Max", "X-Focallength-Px")]
+    if (img16.shape != image.shape[:2] or img16.dtype != np.uint16 or abs(scale[0] - depth.min())
+            > 1e-6 * depth.max() or abs(scale[1] - depth.max()) > 1e-6 * depth.max()
+            or abs(scale[2] - p_npz["focallength_px"]) > 1e-3):
+        raise AssertionError(f"serve: png16 {img16.shape} {img16.dtype}, headers {scale}")
+    smoother = TemporalSmoother(alpha=SMOOTH_ALPHA, host=True)
+    worst = 0.0
+    for i, (raw_depth, (got, payload)) in enumerate(zip(plain, smoothed)):
+        ref = smoother.update(raw_depth)
+        worst = max(worst, float(np.max(np.abs(got.astype(np.float64) - ref) / np.abs(ref))))
+        if payload["smooth_seeded"] is not (i == 0):
+            raise AssertionError(f"serve: frame {i} smooth_seeded {payload['smooth_seeded']}")
+    blended = float(np.mean(smoothed[-1][0] != plain[-1]))
+    log(f"[serve] depth {depth.shape} finite and positive, range [{depth.min():.4g}, "
+        f"{depth.max():.4g}] m, f_px {p_npz['focallength_px']:.2f}; npz equals json's min and "
+        f"max; png16 decodes (uint16) with X-Depth-Min/Max and X-Focallength-Px; session stream "
+        f"of {SERVE_SESSION} against the host twin over the unsmoothed responses: largest "
+        f"relative difference {worst:.3e} (fail above {SERVE_SMOOTH_BOUND:g}), "
+        f"{blended:.4f} of the last frame's pixels smoothed")
+    if worst > SERVE_SMOOTH_BOUND:
+        raise AssertionError(f"serve: session stream off the host twin by {worst:.3e}")
+
+    size = runner.cfg.img_size
+    ref = runner.infer_one(canonicalize(image, size))
+    ref_depth, ref_f = restore(ref["depth"], ref["focallength_px"], *image.shape[:2], size)
+    dev = float(np.max(np.abs(ref_depth - depth)) / np.max(np.abs(ref_depth)))
+    f_dev = abs(ref_f - p_npz["focallength_px"]) / abs(ref_f)
+    log(f"[serve] a lone request against runner.infer_one on the host-canonicalised frame, "
+        f"resized back: max |diff| {dev:.3e} of scale, f_px {f_dev:.3e} relative (fail above "
+        f"{SERVE_REF_BOUND:g})")
+    if not (dev <= SERVE_REF_BOUND and f_dev <= SERVE_REF_BOUND):
+        raise AssertionError(f"serve: server depth off infer_one by {dev:.3e} / {f_dev:.3e}")
+
+    p50_1, p95_1 = percentiles(lone)
+    p50_8, p95_8 = percentiles(loaded)
+    fill = metrics["depthpro_batch_fill_ratio"]
+    host = {"PNG decode": host_ms(lambda: np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))),
+            "canonical resize": host_ms(lambda: canonicalize(image, size)),
+            "resize back": host_ms(lambda: restore(ref["depth"], 1.0, *image.shape[:2], size)),
+            "npz encode": host_ms(lambda: encode_npz(depth)),
+            "png16 encode": host_ms(lambda: encode_png16(depth))}
+    log(f"[serve] latency at concurrency 1 (a lone request padded to a batch of {SERVE_BATCH}): "
+        f"p50 {p50_1 * 1e3:.1f} ms, p95 {p95_1 * 1e3:.1f} ms over {SERVE_LONE}; at concurrency "
+        f"{SERVE_CONCURRENCY}: {SERVE_REQUESTS / wall:.3f} requests/s, p50 {p50_8 * 1e3:.1f} ms, "
+        f"p95 {p95_8 * 1e3:.1f} ms over {SERVE_REQUESTS}; batch fill ratio {fill:.4f} over "
+        f"{forwards} batches; on {card()}")
+    log(f"[serve] host ms per {image.shape[0]}x{image.shape[1]} request (median of 5, one "
+        "thread): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in host.items()))
+    setup = {}
+    for pool in ("thread", "process"):
+        runner.decode_pool = pool
+        ms, started = count_process_starts(lambda: host_ms(lambda: list(runner.depth_stream([])),
+                                                           runs=10))
+        setup[pool] = (ms, started)
+    runner.decode_pool = "thread"
+    log(f"[serve] the runner's per-batch set-up and tear-down of its loader (depth_stream of no "
+        f"frames, median of 10): thread pool (the server's) {setup['thread'][0]:.3f} ms, "
+        f"{setup['thread'][1]} processes started; spawn process pool (decode_pool='auto' on "
+        f"this host's {os.cpu_count()} CPUs) {setup['process'][0]:.3f} ms, "
+        f"{setup['process'][1]} processes started")
+    srv.shutdown()
+    srv.server_close()
+    thread.join(30)
+    return launches, runner, built
+
+
+def phase_quantize(plain: DepthVideoRunner, plain_built: int, exact_fps: float) -> dict:
+    """The int8 weight-only ViT on the large preset: memory beside the fp32
+    master weights, launches, deviation from the unquantized runner's
+    canonical inverse depth, frames/s; the tiny config on the card against
+    the CPU."""
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    runner = DepthVideoRunner(cfg=model_preset("large"), precision="bf16", batch_size=BATCH,
+                              rng_seed=SEED, quantize=True, device="cuda")
+    torch.cuda.synchronize()
+    built = torch.cuda.memory_allocated() - mem0
+    saved, want_saved = param_bytes(plain) - param_bytes(runner), quantized_saving(runner.cfg)
+    log(f"[quantize] memory_allocated after the build: int8 ViTs {built / 2**30:.4f} GiB "
+        f"(parameters {param_bytes(runner) / 2**30:.4f} GiB) against the fp32 master weights' "
+        f"{plain_built / 2**30:.4f} GiB (parameters {param_bytes(plain) / 2**30:.4f} GiB): "
+        f"{(plain_built - built) / 1e9:.4f} GB less allocated, {saved / 1e9:.4f} GB less in "
+        f"parameters; predicted {want_saved / 1e9:.4f} GB")
+    # the build holds its parameters and nothing more: no fp32 copy of the quantized weights
+    if saved != want_saved or abs(built - param_bytes(runner)) > QUANT_SAVING_SLACK * want_saved:
+        raise AssertionError(f"quantize: {saved} bytes saved in parameters (predicted "
+                             f"{want_saved}); the build allocated {built} for "
+                             f"{param_bytes(runner)} of parameters")
+    rng = np.random.default_rng(SEED + 10)
+    frames = [rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8) for _ in range(4)]
+    torch.cuda.synchronize()
+    reset_launches()
+    results = list(runner.depth_stream(frames))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    forwards = math.ceil(len(frames) / BATCH)
+    want = {name: n * forwards for name, n in PER_FORWARD["exact"].items()}
+    log(f"[quantize] large preset, bf16, batch {BATCH}, quantize: {len(results)} frames, "
+        f"{forwards} forwards, launches {launches}")
+    check_results(results, len(frames), "quantize")
+    if launches != want:
+        raise AssertionError(f"quantize: kernel launches {launches} != {want}")
+
+    cfg = runner.cfg
+    frame = torch.from_numpy(frames[0][None]).cuda()
+    x = resize2d(frame.float() / 127.5 - 1.0, (cfg.img_size, cfg.img_size))
+    with torch.inference_mode():
+        cq, _ = forward(runner.params, x, cfg, Precision.bf16(), compute_fov=False)
+        cp, _ = forward(plain.params, x, cfg, Precision.bf16(), compute_fov=False)
+    cq, cp = cq.float(), cp.float()
+    if not (torch.isfinite(cq).all() and torch.isfinite(cp).all()):
+        raise AssertionError("quantize: non-finite canonical inverse depth")
+    dev = ((cq - cp).abs() / cp.abs().max().clamp_min(1e-30)).flatten()
+    med, p99, mx = (torch.quantile(dev[::4], 0.5).item(), torch.quantile(dev[::4], 0.99).item(),
+                    dev.max().item())
+    log(f"[quantize] int8 against bf16 canonical inverse depth (share of scale, random weights): "
+        f"median {med:.3e} p99 {p99:.3e} max {mx:.3e}; fail above {QUANT_MAX_DEV}; the JAX "
+        f"package's chip figure with its checkpoint: median {TPU_QUANT_MEDIAN:.0e} added to "
+        f"bf16's own (not enforced)")
+    if mx > QUANT_MAX_DEV:
+        raise AssertionError(f"quantize: deviation {mx:.3e} above {QUANT_MAX_DEV}")
+    pool = [rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8) for _ in range(8)]
+    fps = frames_per_s(runner, [pool[i % len(pool)] for i in range(TIMED_FRAMES)], BATCH)
+    log(f"[quantize] {fps} frames/s over {TIMED_FRAMES} frames (batch {BATCH}, bf16, int8 ViTs), "
+        f"beside the exact slice's {exact_fps}; on {card()}")
+    del runner
+
+    tiny = tiny_config()
+    cpu = init_depth_pro(tiny, torch.Generator().manual_seed(SEED), "cpu")
+    q_cpu = quantize_vit_weights(cpu)
+    q_gpu = quantize_vit_weights(map_tree(lambda t: t.cuda(), cpu))
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(_leaves(q_gpu), _leaves(q_cpu)))
+    if not same:
+        raise AssertionError("quantize: int8 codes or scales differ between the card and the CPU")
+    img = torch.from_numpy(rng.standard_normal((1, 300, 410, 3)).astype(np.float32))
+    with torch.inference_mode():
+        ref = infer_fn(q_cpu, img, None, tiny, Precision.fp32())
+        got = infer_fn(q_gpu, img.cuda(), None, tiny, Precision.fp32())
+    torch.testing.assert_close(got["depth"].cpu(), ref["depth"], rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(got["focallength_px"].cpu(), ref["focallength_px"], rtol=1e-3,
+                               atol=1e-4)
+    log("[quantize] tiny config: int8 codes and scales quantized on the card equal the CPU's; "
+        "the quantized fp32 forward, card (K1) against the CPU plain path: depth and f_px within "
+        "rtol 1e-3 / atol 1e-4")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree) -> list:
+    out = []
+    map_tree(out.append, tree)
+    return out
+
+
 def phase_unpacked_entry() -> dict:
     """The unpacked-attention entry point at a ViT-L block's shape."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -1264,6 +1661,10 @@ def main() -> int:
     phase_device_floorplan(scene)
     paths["pipeline_device"] = phase_pipeline_device(host_fps)
     paths["effect"] = phase_effect(scene)
+    paths["serve"], serve_runner, serve_built = phase_serve(scene["image"])
+    paths["quantize"] = phase_quantize(serve_runner, serve_built, exact_fps)
+    del serve_runner
+    torch.cuda.empty_cache()
     paths["maps_cli"] = phase_maps_cli()  # last: its decode pool's processes come and go
     kernels = []
     for key, k in KERNELS.items():

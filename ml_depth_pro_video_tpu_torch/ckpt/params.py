@@ -20,6 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .quantize import _QUANT_KEYS
+
 
 def _unflatten(flat: dict):
     """Twin of ``ml_depth_pro_video_tpu/ckpt/convert.py::_unflatten``."""
@@ -49,35 +51,45 @@ def load_params(npz_path: str) -> dict:
         return _unflatten(dict(f))
 
 
-def _check_not_quantized(tree, path: str = "") -> None:
+def _is_quantized_code(path: tuple) -> bool:
+    """Whether ``path`` names the int8 codes of a ViT block matmul weight,
+    the one place ``ckpt/quantize.py`` puts int8 leaves."""
+    vit = path[:2] in (("encoder", "patch_vit"), ("encoder", "image_vit"), ("fov", "vit"))
+    return (vit and len(path) == 5 and path[2] == "blocks" and path[3] in _QUANT_KEYS
+            and path[4] == "q")
+
+
+def _map_with_path(fn, tree, path: tuple = ()):
+    """Apply ``fn(path, leaf)`` to every leaf of a dict/list tree; ``path`` is
+    the tuple of keys (list indices as strings); ``None`` stays None."""
     if isinstance(tree, dict):
-        if set(tree) == {"q", "s"}:
-            raise NotImplementedError(
-                f"int8-quantized weights at {path or '<root>'}: the PyTorch port does "
-                "not run quantized param trees yet; load the fp32 tree")
-        for k, v in tree.items():
-            _check_not_quantized(v, f"{path}/{k}")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            _check_not_quantized(v, f"{path}/{i}")
-    elif tree is not None and np.asarray(tree).dtype == np.int8:
-        raise NotImplementedError(f"int8 leaf at {path}: quantized trees are not supported")
+        return {k: _map_with_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_with_path(fn, v, path + (str(i),)) for i, v in enumerate(tree)]
+    return None if tree is None else fn(path, tree)
 
 
 def map_tree(fn, tree):
     """Apply ``fn`` to every leaf of a dict/list tree; ``None`` stays None."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [map_tree(fn, v) for v in tree]
-    return None if tree is None else fn(tree)
+    return _map_with_path(lambda _, leaf: fn(leaf), tree)
 
 
 def from_numpy_tree(tree, device="cpu", dtype: torch.dtype = torch.float32) -> dict:
     """Numpy param tree (as the JAX package builds or saves it) -> the same
-    tree of torch tensors on ``device``. Quantized trees are refused."""
-    _check_not_quantized(tree)
-    return map_tree(lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device), tree)
+    tree of torch tensors on ``device``, in ``dtype``. A quantized tree
+    (``ckpt/quantize.py``) keeps its int8 codes as int8; an int8 leaf
+    anywhere else is refused."""
+
+    def leaf(path, a):
+        a = np.asarray(a)
+        if a.dtype == np.int8:
+            if not _is_quantized_code(path):
+                raise ValueError(f"int8 leaf at /{'/'.join(path)}: only the codes of the ViT "
+                                 f"block matmul weights ({', '.join(_QUANT_KEYS)}) are int8")
+            return torch.tensor(a, device=device)
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    return _map_with_path(leaf, tree)
 
 
 def to_numpy_tree(tree) -> dict:
@@ -197,8 +209,10 @@ def init_depth_pro(cfg, generator: torch.Generator, device="cpu") -> dict:
 
 class ParamTree(nn.Module):
     """A param tree held as this module's (frozen) parameters, so that
-    ``.to()``, ``state_dict()`` and ``parameters()`` see it. ``tree()``
-    gives the nested structure back, sharing the parameters' storage."""
+    ``.to()``, ``state_dict()`` and ``parameters()`` see it; the int8 codes
+    of a quantized tree are frozen parameters too. ``tree()`` gives the
+    nested structure back (``{'q', 's'}`` dicts included), sharing the
+    parameters' storage."""
 
     def __init__(self, tree):
         super().__init__()

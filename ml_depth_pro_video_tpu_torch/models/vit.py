@@ -7,7 +7,9 @@ Python loop over that axis replaces the JAX package's ``lax.scan``.
 Attention runs on the packed head-contiguous qkv through
 ``ops.attention.attention_packed``: kernel K1 on CUDA, or K3 on the blocks
 after a ToMe token merge, which carry the merged tokens' log sizes as a
-per-key score bias (``compute_token_merge``, the speed tiers).
+per-key score bias (``compute_token_merge``, the speed tiers). The block
+matmul weights may be int8 codes with per-channel scales
+(``ckpt/quantize.py``), dequantized to the compute dtype per matmul.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ckpt.params import ParamTree
+from ..ckpt.quantize import materialize_weight
 from ..core.precision import Precision
 from ..ops.attention import attention_packed
 from ..ops.norm import layer_norm
@@ -64,11 +67,18 @@ def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, patch * patch * c)
 
 
-def _dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _dense(x: torch.Tensor, w, b: torch.Tensor) -> torch.Tensor:
     """x @ w + b in x's dtype, the bias added inside the GEMM (one pass over
-    the output instead of a second elementwise one)."""
-    y = torch.addmm(b.to(x.dtype), x.reshape(-1, x.shape[-1]), w.to(x.dtype))
+    the output instead of a second elementwise one). ``w`` is a tensor or a
+    quantized ``{'q', 's'}`` dict, dequantized to x's dtype first."""
+    w = materialize_weight(w, x.dtype)
+    y = torch.addmm(b.to(x.dtype), x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _layer(v, i: int):
+    """Layer ``i`` of a stacked block param: a tensor or a ``{'q', 's'}`` dict."""
+    return {k: t[i] for k, t in v.items()} if isinstance(v, dict) else v[i]
 
 
 def _block(x: torch.Tensor, bp: dict, cfg: ViTConfig,
@@ -89,7 +99,7 @@ def _run_blocks(x: torch.Tensor, blocks: dict, lo: int, hi: int, cfg: ViTConfig,
     per-key score bias of every block in the segment (ToMe proportional
     attention)."""
     for i in range(lo, hi):
-        x = _block(x, {k: v[i] for k, v in blocks.items()}, cfg, key_bias)
+        x = _block(x, {k: _layer(v, i) for k, v in blocks.items()}, cfg, key_bias)
     return x
 
 

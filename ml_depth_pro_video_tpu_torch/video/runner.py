@@ -13,9 +13,11 @@ overlaps the compute of batch N+1.
 smooths the stream in playback order (``video/temporal.py``) and
 ``fetch_pack="u16"`` fetches log-u16 codes instead of fp32 depth
 (``video/pack.py``): both run on the device right behind their batch's
-compute, and the host unpacks at collect time. Options of the JAX runner
-that this port does not implement yet (meshes, latency parallelism, AOT
-export, int8) raise ``NotImplementedError`` when set.
+compute, and the host unpacks at collect time. ``quantize=True`` stores the
+ViTs' block matmul weights as int8 with per-channel scales
+(``ckpt/quantize.py``). Options of the JAX runner that this port does not
+implement yet (meshes and latency parallelism: ROADMAP A item 10; the AOT
+export: item 9) raise ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from ..ckpt.quantize import quantize_vit_weights
 from ..core.precision import disable_tf32, resolve_device, resolve_precision
 from ..io.image import load_stream_item
 from ..models.depth_pro import (
@@ -108,12 +111,16 @@ class DepthVideoRunner:
                              f"got {decode_pool!r}")
         if not 0.0 <= float(temporal_smooth) < 1.0:
             raise ValueError(f"temporal_smooth must be in [0, 1), got {temporal_smooth}")
-        unported = {"mesh": mesh is not None, "parallel='latency'": parallel != "dp",
-                    "exported_path": exported_path is not None, "quantize": bool(quantize)}
-        for name, is_set in unported.items():
+        unported = {"mesh": (mesh is not None, "10 (parallel/ on torch.distributed)"),
+                    "parallel='latency'": (parallel != "dp",
+                                           "10 (parallel/ on torch.distributed)"),
+                    "exported_path": (exported_path is not None,
+                                      "9 (export waits on the kernels' registration as "
+                                      "torch.library custom ops)")}
+        for name, (is_set, item) in unported.items():
             if is_set:
                 raise NotImplementedError(f"DepthVideoRunner({name}) is not ported to the "
-                                          "PyTorch runner yet")
+                                          f"PyTorch runner yet: ROADMAP A item {item}")
         if speed != "exact":
             cfg = apply_speed(cfg, speed)
         self.device = resolve_device(device)
@@ -135,7 +142,10 @@ class DepthVideoRunner:
         self.pipeline_depth = max(int(pipeline_depth), 1)
         self.temporal_smooth = float(temporal_smooth)
         self.fetch_pack = fetch_pack
-        self.model = DepthProModel(build_params(cfg, self.device, rng_seed), cfg).eval()
+        params = build_params(cfg, self.device, rng_seed)
+        if quantize:
+            params = quantize_vit_weights(params)
+        self.model = DepthProModel(params, cfg).eval()
         self.params = self.model.tree()
 
     # ------------------------------------------------------------------

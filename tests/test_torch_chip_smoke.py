@@ -7,6 +7,9 @@ bound, the host-twin reference and its blended share, the noisy frames. And
 the on-card geometry phases' CPU side: the structured scene, the host
 filters' keep masks, the floor-plan checks run with the CPU on both sides at
 a small size, and the launches the device pipeline and the effect expect.
+And the ``serve`` and ``quantize`` phases' arithmetic: the bytes the int8
+ViTs save, the launches per forward from ``/metrics``' batch count, the
+latency percentiles and the count of processes started.
 """
 
 import numpy as np
@@ -210,3 +213,82 @@ def test_device_pipeline_and_effect_expect_the_exact_launches():
         "K1": 144, "K2": 6, "K3": 0, "K4": 0}
     duration, fps = chip_smoke.EFFECT_FRAMES
     assert int(duration * fps) == 8
+
+
+def test_quantized_saving_is_the_vit_matmuls_at_a_quarter_of_their_bytes():
+    """The large preset: 24 blocks x (1024*3072 + 1024*1024 + 2*1024*4096) = 302 M weights per
+    ViT with 24 x 9216 scales; three ViTs save 3 of every 4 bytes, less the scales."""
+    from ml_depth_pro_video_tpu_torch.models.depth_pro import model_preset
+
+    large = model_preset("large")
+    assert chip_smoke.vit_matmul_params(large.vit) == (301_989_888, 221_184)
+    assert chip_smoke.quantized_saving(large) == 3 * (3 * 301_989_888 - 4 * 221_184)
+    assert chip_smoke.quantized_saving(large) == 2_715_254_784  # 2.715 GB
+
+
+@pytest.mark.parametrize("use_fov_head", [True, False])
+def test_quantized_saving_matches_a_quantized_tiny_model(use_fov_head):
+    """The prediction equals the parameter bytes two tiny models hold, fp32
+    against int8 ViTs (with and without the FOV ViT)."""
+    from ml_depth_pro_video_tpu_torch.ckpt.params import init_depth_pro
+    from ml_depth_pro_video_tpu_torch.ckpt.quantize import quantize_vit_weights
+    from ml_depth_pro_video_tpu_torch.models.depth_pro import DepthProModel, tiny_config
+
+    cfg = tiny_config(use_fov_head=use_fov_head)
+    tree = init_depth_pro(cfg, torch.Generator().manual_seed(0))
+    held = [sum(chip_smoke.nbytes(p) for p in DepthProModel(t, cfg).parameters())
+            for t in (tree, quantize_vit_weights(tree))]
+    assert held[0] - held[1] == chip_smoke.quantized_saving(cfg)
+
+
+def test_serve_launches_per_forward_come_from_the_batches_metrics_counts():
+    """The serve phase's forwards are /metrics' depthpro_batches_total: each
+    batch is one forward of 72 K1 and 3 K2, whatever its fill."""
+    from ml_depth_pro_video_tpu_torch.serve.server import _Metrics
+
+    m = _Metrics()
+    for size in (1, 4, 4, 2, 1):
+        m.record_batch(size)
+    for _ in range(12):
+        m.record_request(0.3, error=False)
+    metrics = chip_smoke.parse_metrics(m.render(chip_smoke.SERVE_BATCH))
+    forwards = int(metrics["depthpro_batches_total"])
+    assert forwards == 5 and metrics["depthpro_requests_total"] == 12
+    assert metrics["depthpro_batch_fill_ratio"] == pytest.approx(12 / 20)
+    want = {k: n * forwards for k, n in chip_smoke.PER_FORWARD["exact"].items()}
+    assert want == {"K1": 360, "K2": 15, "K3": 0, "K4": 0}
+    # the phase's own count of requests: lone, concurrent, npz, png16, the session stream twice
+    sent = chip_smoke.SERVE_LONE + chip_smoke.SERVE_REQUESTS + 2 + 2 * chip_smoke.SERVE_SESSION
+    assert sent == 50
+
+
+def test_percentiles_interpolate_linearly():
+    assert chip_smoke.percentiles([1.0, 2.0, 3.0, 4.0, 5.0]) == (3.0, pytest.approx(4.8))
+    assert chip_smoke.percentiles([0.25]) == (0.25, 0.25)
+
+
+def test_count_process_starts_counts_spawned_processes_only(monkeypatch):
+    import multiprocessing
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from multiprocessing import resource_tracker
+
+    def threads():
+        with ThreadPoolExecutor(2) as ex:
+            return sum(ex.map(abs, [-1, -2]))
+
+    assert chip_smoke.count_process_starts(threads) == (3, 0)
+    resource_tracker.ensure_running()
+
+    def one_process():
+        p = multiprocessing.get_context("spawn").Process(target=os.getpid)
+        p.start()
+        p.join(60)
+        return p.exitcode
+
+    assert chip_smoke.count_process_starts(one_process) == (0, 1)
+    # the resource tracker counts once, when it starts during the call
+    tracker = resource_tracker._resource_tracker
+    pid = tracker._pid
+    monkeypatch.setattr(tracker, "_pid", None)
+    assert chip_smoke.count_process_starts(lambda: setattr(tracker, "_pid", pid)) == (None, 1)

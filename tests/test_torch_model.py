@@ -175,8 +175,15 @@ def test_save_params_roundtrip_through_port_loader(params, tmp_path):
 
 
 def test_quantized_tree_is_refused(params):
-    with pytest.raises(NotImplementedError, match="int8"):
-        P.from_numpy_tree(jax.tree.map(np.asarray, quantize_vit_weights(_jtree(params))))
+    """A quantized tree loads (tests/test_torch_quantize.py); int8 anywhere but
+    the codes of the ViT block matmul weights is refused."""
+    qtree = jax.tree.map(np.asarray, quantize_vit_weights(_jtree(params)))
+    assert P.from_numpy_tree(qtree)["fov"]["vit"]["blocks"]["qkv_w"]["q"].dtype == torch.int8
+    qtree["encoder"]["patch_vit"]["blocks"]["qkv_b"] = np.zeros((2, 3), np.int8)
+    with pytest.raises(ValueError, match="int8 leaf at /encoder/patch_vit/blocks/qkv_b"):
+        P.from_numpy_tree(qtree)
+    with pytest.raises(ValueError, match="int8"):
+        P.from_numpy_tree({"head": {"conv_out": {"w": {"q": np.zeros(3, np.int8)}}}})
 
 
 def test_model_tree_roundtrip_and_state_dict(params):

@@ -36,7 +36,7 @@ def test_port_covers_the_slice_modules():
                  "cli.generate_depth_maps", "cli.smooth_depth", "cli.pipeline", "io.image",
                  "native", "geom.pointcloud", "geom.unproject", "geom.ground", "geom.clean",
                  "geom.shapes", "geom.floorplan_viz", "geom.render", "geom.device_floorplan",
-                 "effects.parallax"):
+                 "effects.parallax", "ckpt.quantize", "serve.server"):
         assert f"ml_depth_pro_video_tpu_torch.{name}" in mods
 
 
