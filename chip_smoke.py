@@ -87,7 +87,23 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``depth-pro-effect-torch`` on one PNG: an mp4 that ``cv2.VideoCapture``
    reads back with ``duration*fps`` frames, and the anaglyph PNG (72 K1 and 3
    K2 per image);
-6d. serve: ``create_server`` (``serve/server.py``) at the ``large`` preset,
+6d. tools: one ``large`` bf16 runner on the card drives the four CLIs that run
+   the model through their functions with ``runner=`` on the structured
+   scene's 1080x1920 PNG: ``depth-pro-pointcloud-torch`` (a PLY),
+   ``depth-pro-clean-torch``, ``depth-pro-mesh-torch`` (Poisson at depth 8,
+   256^3, with its HTML viewer) and ``depth-pro-floorplan-torch``, each one
+   forward of 72 K1 and 3 K2; every file must exist and decode, the PLYs'
+   points be finite, the OBJ have faces and each ``ground.json`` be finite
+   (random-weight depth: the path, not the geometry). Then the mesh run's
+   seconds split into forward, solve and host geometry; the screened Poisson
+   CG at 256^3 on a cloud of the scene's true depth, the card against the CPU
+   on one system (max |diff| within ``POISSON_BOUND`` of max |chi|,
+   iterations within 1, equal marching-tetrahedra counts), its ms and ms per
+   iteration beside its bound; then ``depth-pro-view-torch`` (html and a
+   PNG view), ``depth-pro-ply-floorplan-torch`` where matplotlib imports (the
+   line says which case held) and ``depth-pro-eval-torch`` (the runner's npz
+   against the scene's true depth: finite metrics) through ``main``;
+6e. serve: ``create_server`` (``serve/server.py``) at the ``large`` preset,
    bf16, ``max_batch=4``, ``max_wait_ms=30``, warm-up on, ``port=0``, driven
    from this process by ``urllib`` clients over one 1080x1920 PNG of the
    structured scene: 8 lone requests (concurrency 1, each padded to a batch
@@ -106,7 +122,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    (PNG decode, canonical resize, resize back, npz and png16 encodes) and the
    runner's per-batch pool set-up with threads (the server's) and with the
    spawn process pool;
-6e. quantize: the runner with ``quantize=True`` (large, bf16, batch 2):
+6f. quantize: the runner with ``quantize=True`` (large, bf16, batch 2):
    ``torch.cuda.memory_allocated()`` after its build beside the serve
    runner's (fp32 master weights), the saving against
    ``quantized_saving``; 72 K1 and 3 K2 per forward; its canonical inverse
@@ -128,8 +144,10 @@ it is ``{"kernels": [...]}`` with each kernel's launches, error and times.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import importlib.util
 import io
 import json
 import math
@@ -149,7 +167,16 @@ import torch
 import torch.nn.functional as F
 
 from ml_depth_pro_video_tpu_torch import native
-from ml_depth_pro_video_tpu_torch.cli import generate_depth_maps, smooth_depth
+from ml_depth_pro_video_tpu_torch.cli import (
+    depth_to_floorplan,
+    eval_depth,
+    generate_depth_maps,
+    img_to_pointcloud,
+    pointcloud_cleaner,
+    pointcloud_to_mesh,
+    smooth_depth,
+    view_pointcloud,
+)
 from ml_depth_pro_video_tpu_torch.cli import pipeline as cli_pipeline
 from ml_depth_pro_video_tpu_torch.ckpt.params import (
     from_numpy_tree,
@@ -165,9 +192,10 @@ from ml_depth_pro_video_tpu_torch.geom.device_floorplan import (
     DeviceFloorplanConfig,
     make_device_floorplan,
 )
+from ml_depth_pro_video_tpu_torch.geom import floorplan, mesh
 from ml_depth_pro_video_tpu_torch.geom.floorplan_viz import fast_floorplan_image
 from ml_depth_pro_video_tpu_torch.geom.ground import grid_ground_adjustment, normalize_to_ground
-from ml_depth_pro_video_tpu_torch.geom.pointcloud import PointCloud
+from ml_depth_pro_video_tpu_torch.geom.pointcloud import PointCloud, read_ply
 from ml_depth_pro_video_tpu_torch.geom.unproject import depth_to_3d
 from ml_depth_pro_video_tpu_torch.kernels.loader import load_library
 from ml_depth_pro_video_tpu_torch.models import vit as vit_module
@@ -281,6 +309,19 @@ QUANT_MAX_DEV = 0.05  # int8 against bf16 canonical inverse depth, share of scal
 # 0.0002% of scale on top of the bf16 mode's own deviation; printed beside ours, not enforced
 TPU_QUANT_MEDIAN = 2e-6
 QUANT_SAVING_SLACK = 0.01  # a build's bytes beyond its parameters (the allocator's rounding), of the saving
+TOOLS_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_tools"  # ignored by git
+# random-weight depth puts most points at the 1e4 m clamp, ~0.1 m apart: the cleaning settings
+# of the JAX package's CLI test on random weights (tests/test_cli_drivers.py) keep the cloud
+RANDOM_DEPTH_CLEAN = dict(nb_points=3, radius=1.0, max_shadow_angle=0.0)
+# depth-pro-floorplan's raster has a cell per 5 cm of the plan's extent, which random-weight depth
+# makes hundreds of kilometres (96 GiB of host memory ran out): cells no smaller than the extent
+# over this
+FLOORPLAN_CELLS = 2048
+POISSON_DEPTH = 8  # depth-pro-mesh's default: a 256^3 grid
+POISSON_SCREEN, POISSON_VOXEL = 4.0, 0.05  # create_mesh_from_pointcloud's defaults
+# the card's chi against the CPU's, share of max |chi|: fp32 in the same op order on both, the dot
+# products summed in float64 (tests/test_torch_mesh.py holds the CPU's against JAX's under it)
+POISSON_BOUND = 1e-4
 
 
 def log(msg: str) -> None:
@@ -1200,6 +1241,244 @@ def phase_effect(scene: dict) -> dict:
     return launches
 
 
+def read_obj_counts(path: Path) -> tuple[int, int]:
+    lines = path.read_text().splitlines()
+    return (sum(line.startswith("v ") for line in lines),
+            sum(line.startswith("f ") for line in lines))
+
+
+def check_ground(path: Path, tag: str) -> dict:
+    model = json.loads(path.read_text())
+    if not all(math.isfinite(v) for v in [*model["normal"], model["d"], *model["origin"]]):
+        raise AssertionError(f"tools: {tag}'s ground.json is not finite: {model}")
+    return model
+
+
+def check_ply(path: Path, tag: str) -> int:
+    cloud = read_ply(str(path))
+    if len(cloud) == 0 or not np.isfinite(cloud.points).all():
+        raise AssertionError(f"tools: {tag}'s {path.name} holds {len(cloud)} points, finite "
+                             f"{np.isfinite(cloud.points).all()}")
+    return len(cloud)
+
+
+def check_image(path: Path, tag: str) -> tuple:
+    from PIL import Image
+
+    img = np.asarray(Image.open(path))
+    if img.size == 0:
+        raise AssertionError(f"tools: {tag}'s {path.name} does not decode")
+    return img.shape
+
+
+def bounded_plan(plan, cells: list):
+    """``create_direct_floorplan`` with its cell no smaller than the x / z
+    extent of the points it draws (those at ``height_threshold`` or above)
+    over ``FLOORPLAN_CELLS``; each cell taken is appended to ``cells``."""
+    def call(points, output_path, **kwargs):
+        if kwargs.get("height_threshold") is not None:
+            points = points[points[:, 1] >= kwargs["height_threshold"]]
+        extent = float(np.ptp(points[:, [0, 2]], axis=0).max()) if len(points) else 0.0
+        kwargs["grid_resolution"] = max(kwargs["grid_resolution"], extent / FLOORPLAN_CELLS)
+        cells.append(kwargs["grid_resolution"])
+        return plan(points, output_path, **kwargs)
+    return call
+
+
+def cg_bound_ms(res: int, screened: bool) -> float:
+    """The least time of one CG iteration on the card: as a function of fp32
+    (res, res, res) grids, (x, r, p[, d]) -> (x, r, p), each input read once
+    and each output written once, over the memory rate. Its ~20 operations a
+    voxel would take 1/30 of that at the fp32 peak, so bytes bound it."""
+    return (6 + screened) * res**3 * 4 / PEAK_BYTES * 1e3
+
+
+def phase_poisson(scene: dict) -> None:
+    """The screened Poisson CG of ``depth-pro-mesh-torch`` at depth 8 (256^3)
+    on a cloud of the structured scene's true depth: the card against the CPU
+    on the same system, iterations, marching tetrahedra's counts, times."""
+    cloud = depth_to_3d(scene["depth"], scene["f_px"], image=scene["image"])
+    down = mesh.voxel_downsample(cloud, POISSON_VOXEL)
+    nrm = mesh.estimate_normals(down.points, radius=POISSON_VOXEL * 2)
+    res = 2**POISSON_DEPTH
+    origin, spacing = mesh._grid_frame(down.points, res)
+    t0 = time.perf_counter()
+    b, diag, _ = mesh._poisson_system(down.points, nrm, res, origin, spacing, POISSON_SCREEN)
+    system_s = time.perf_counter() - t0
+    solved, card_ms = {}, []
+    for dev in ("cuda", "cpu"):
+        bt = torch.as_tensor(b.astype(np.float32), device=dev)
+        d = torch.as_tensor(diag.astype(np.float32), device=dev)
+        for _ in range(3 if dev == "cuda" else 1):
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            x, n = mesh._poisson_cg(bt, d, 300, 1e-6)
+            end.record()
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                card_ms.append(start.elapsed_time(end))
+            solved[dev] = (x.cpu().numpy().astype(np.float64), n, time.perf_counter() - t0)
+        del bt, d, x
+    (on_card, n_card, _), (cpu, n_cpu, cpu_s) = solved["cuda"], solved["cpu"]
+    ms = statistics.median(card_ms)
+    err = float(np.abs(on_card - cpu).max() / np.abs(cpu).max())
+    ijk = np.clip(np.round((down.points - origin) / spacing).astype(np.int64), 0, res - 1)
+    counts = {}
+    for name, chi in (("card", on_card), ("cpu", cpu)):
+        iso = float(np.mean(chi[ijk[:, 0], ijk[:, 1], ijk[:, 2]]))
+        verts, faces = mesh.marching_tetrahedra(chi, iso, origin, spacing)
+        counts[name] = (len(verts), len(faces))
+    bound = cg_bound_ms(res, True)
+    log(f"[poisson] {len(cloud)} points of the {scene['depth'].shape[0]}x"
+        f"{scene['depth'].shape[1]} scene's true depth, {len(down)} after the {POISSON_VOXEL} m "
+        f"voxels, screened (alpha {POISSON_SCREEN}) {res}^3: the card against the CPU on one "
+        f"system: max |diff| {err:.3e} of max |chi| (fail above {POISSON_BOUND:g}); iterations "
+        f"{n_card} / {n_cpu} (fail if more than 1 apart); marching tetrahedra (vertices, faces) "
+        f"{counts['card']} / {counts['cpu']} (fail if not equal)")
+    log(f"[poisson] the card's solve: {ms:.3f} ms for {n_card} iterations (CUDA events, median of "
+        f"3; {', '.join(f'{v:.3f}' for v in card_ms)}), {ms / n_card:.4f} ms per iteration against "
+        f"a bound of {bound:.4f} ms (7 fp32 {res}^3 grids read or written at {PEAK_BYTES / 1e12} "
+        f"TB/s: {bound / (ms / n_card):.1%} of it); the CPU's {cpu_s:.3f} s on "
+        f"{torch.get_num_threads()} threads; the host's system (splat, divergence) {system_s:.3f} "
+        f"s; on {card()}")
+    if err > POISSON_BOUND or abs(n_card - n_cpu) > 1 or counts["card"] != counts["cpu"]:
+        raise AssertionError(f"poisson: the card disagrees with the CPU: {err}, {n_card} / "
+                             f"{n_cpu} iterations, counts {counts}")
+
+
+def phase_tools(scene: dict) -> dict:
+    """The host tool CLIs on one large-preset bf16 runner on the card: the four
+    that run the model (``depth-pro-{pointcloud,clean,mesh,floorplan}-torch``,
+    through their functions with ``runner=``) on the structured scene's PNG,
+    72 K1 and 3 K2 per forward; the Poisson solve (``phase_poisson``); then the
+    three host CLIs through ``main``. The depth is random-weight depth: the
+    checks prove the path (files written, decodable, finite), not the
+    geometry. Returns the launches of the four CLIs' forwards."""
+    from PIL import Image
+
+    phase_t0 = time.perf_counter()
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    png = TOOLS_DIR / "room.png"
+    Image.fromarray(scene["image"]).save(png)
+    t0 = time.perf_counter()
+    # threads decode the one image: a spawned pool would start (~7 s here) inside every infer_one
+    runner = DepthVideoRunner(cfg=model_preset("large"), precision="bf16", rng_seed=SEED,
+                              decode_pool="thread", device="cuda")
+    build_s = time.perf_counter() - t0
+    out = {name: TOOLS_DIR / name for name in ("pointcloud", "clean", "mesh", "floorplan")}
+    calls = {
+        "pointcloud": lambda: img_to_pointcloud.create_normalized_pointcloud(
+            str(png), str(out["pointcloud"] / "room.ply"), ground_params_dir=str(out["pointcloud"]),
+            runner=runner),
+        "clean": lambda: pointcloud_cleaner.process_image_to_clean_pointcloud(
+            str(png), str(out["clean"]), runner=runner, **RANDOM_DEPTH_CLEAN),
+        "mesh": lambda: pointcloud_to_mesh.process_image_to_mesh(
+            str(png), str(out["mesh"] / "room_mesh.obj"), method="poisson", depth=POISSON_DEPTH,
+            runner=runner, html=True, **RANDOM_DEPTH_CLEAN),
+        "floorplan": lambda: depth_to_floorplan.depth_image_to_floorplan(
+            str(png), str(out["floorplan"]), runner=runner),
+    }
+    forwards, solves, cells = [], [], []
+    real_infer, real_solve = runner.infer_one, mesh._poisson_cg_device
+    real_plan = depth_to_floorplan.create_direct_floorplan
+
+    def timed(fn, into):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            result = fn(*args, **kwargs)  # both return host arrays: the card is done
+            into.append((time.perf_counter() - t0, result))
+            return result
+        return call
+
+    runner.infer_one = timed(real_infer, forwards)
+    mesh._poisson_cg_device = timed(real_solve, solves)
+    depth_to_floorplan.create_direct_floorplan = bounded_plan(real_plan, cells)
+    launches, wall = {}, {}
+    try:
+        for name, call in calls.items():
+            out[name].mkdir()
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall[name] = time.perf_counter() - t0
+            launches[name] = read_launches()
+            log(f"[tools] {name}: {wall[name]:.3f} s, launches {launches[name]}")
+    finally:
+        runner.infer_one, mesh._poisson_cg_device = real_infer, real_solve
+        depth_to_floorplan.create_direct_floorplan = real_plan
+    del runner
+    torch.cuda.empty_cache()
+    want = dict(PER_FORWARD["exact"])
+    if any(n != want for n in launches.values()) or len(forwards) != 4 or len(solves) != 1:
+        raise AssertionError(f"tools: launches {launches} (want {want} each), {len(forwards)} "
+                             f"forwards, {len(solves)} solves")
+    depth = forwards[0][1]["depth"]
+    points = check_ply(out["pointcloud"] / "room.ply", "pointcloud")
+    kept = check_ply(out["clean"] / "room_clean.ply", "clean")
+    preview = check_image(out["clean"] / "room_clean_preview.png", "clean")
+    verts, faces = read_obj_counts(out["mesh"] / "room_mesh.obj")
+    plan = check_image(out["floorplan"] / "room_floorplan.png", "floorplan")
+    if faces == 0 or not (out["mesh"] / "room_mesh.html").stat().st_size:
+        raise AssertionError(f"tools: the mesh has {verts} vertices and {faces} faces")
+    check_image(out["mesh"] / "room_mesh_preview.png", "mesh")
+    grounds = [check_ground(out[name] / "ground.json", name) for name in out]
+    log(f"[tools] one large preset bf16 runner (built in {build_s:.3f} s), the structured scene's "
+        f"1080x1920 PNG, random-weight depth in [{depth.min():.4g}, {depth.max():.4g}] m: launches "
+        f"per CLI {launches}; pointcloud: {points} finite points; clean ({RANDOM_DEPTH_CLEAN}): "
+        f"{kept} points, preview {preview}; mesh: {verts} vertices, {faces} faces, html and "
+        f"preview written; floorplan ({cells[0]:.4g} m cells): PNG {plan}; ground.json finite "
+        f"in all four (normal "
+        f"{[round(v, 6) for v in grounds[0]['normal']]})")
+    fwd = forwards[2][0]
+    solve = solves[0][0]
+    log(f"[tools] seconds per CLI (forward included): "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in wall.items())}; depth-pro-mesh-torch "
+        f"(poisson, depth {POISSON_DEPTH}): forward {fwd:.3f} s, the solve {solve:.3f} s (upload, "
+        f"CG, fetch), host geometry {wall['mesh'] - fwd - solve:.3f} s; on {card()}")
+
+    phase_poisson(scene)
+
+    ply, host = out["pointcloud"] / "room.ply", TOOLS_DIR / "host"
+    host.mkdir()
+    with contextlib.redirect_stdout(io.StringIO()):
+        view_pointcloud.main([str(ply), "-o", str(host / "view.png"), "--html"])
+        view_pointcloud.main([str(ply), "-o", str(host / "view.png"), "--view", "front"])
+    html = (host / "view.html").stat().st_size
+    view = check_image(host / "view.png", "view")
+    if importlib.util.find_spec("matplotlib") is None:
+        plans = "not run: matplotlib does not import here (it draws two of its four outputs)"
+    else:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            floorplan.main([str(ply), "-o", str(host / "plans")])
+        outs = dict(line.split(": ", 1) for line in printed.getvalue().strip().splitlines())
+        if sorted(outs) != ["data", "direct", "floorplan", "simple"] or not all(
+                os.path.getsize(v) for v in outs.values()):
+            raise AssertionError(f"tools: depth-pro-ply-floorplan-torch wrote {outs}")
+        plans = "4 outputs written (matplotlib imports here)"
+    (host / "pred").mkdir()
+    (host / "gt").mkdir()
+    np.savez_compressed(host / "pred" / "room_depth.npz", depth=depth)
+    np.savez_compressed(host / "gt" / "room.npz", depth=scene["depth"])
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        eval_depth.main(["--pred", str(host / "pred"), "--gt", str(host / "gt")])
+    metrics = json.loads(printed.getvalue().strip().splitlines()[-1])
+    if metrics.get("n_images") != 1 or not all(
+            math.isfinite(v) for v in metrics.values() if isinstance(v, float)):
+        raise AssertionError(f"tools: depth-pro-eval-torch printed {metrics}")
+    log(f"[tools] depth-pro-view-torch: html {html} bytes, front view {view}; "
+        f"depth-pro-ply-floorplan-torch: {plans}; depth-pro-eval-torch (the runner's depth "
+        f"against the scene's true depth, random weights): abs_rel {metrics['abs_rel']:.4g}, "
+        f"SI_boundary_F1 {metrics['SI_boundary_F1']:.4g}, all finite; the phase took "
+        f"{time.perf_counter() - phase_t0:.3f} s")
+    shutil.rmtree(TOOLS_DIR)
+    return {k: sum(n[k] for n in launches.values()) for k in want}
+
+
 def vit_matmul_params(vit: ViTConfig) -> tuple[int, int]:
     """(weights, scales) of one ViT's block matmuls: the weights that
     ``quantize_vit_weights`` stores as int8 and their fp32 scales, one per
@@ -1661,6 +1940,7 @@ def main() -> int:
     phase_device_floorplan(scene)
     paths["pipeline_device"] = phase_pipeline_device(host_fps)
     paths["effect"] = phase_effect(scene)
+    paths["tools"] = phase_tools(scene)
     paths["serve"], serve_runner, serve_built = phase_serve(scene["image"])
     paths["quantize"] = phase_quantize(serve_runner, serve_built, exact_fps)
     del serve_runner
