@@ -136,6 +136,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    3 K2 launches per forward), then ``depth-pro-smooth-torch`` over its npz
    files; file counts, shapes and finiteness are checked (needs Pillow).
 
+8. export: ``depth-pro-export-torch`` (``ckpt/export.py::main``) writes the
+   ``torch.export`` artifact of the ``large`` preset (bf16, batch 2, random
+   weights: the artifact holds none) for ``--speed exact`` and ``--speed
+   balanced``; for each, a fresh ``DepthVideoRunner(exported_path=...)``
+   streams 4 frames of 1536x1536 uint8 through ``depth_stream``: every
+   forward must go through the artifact (``exported_calls``), launching 72 K1
+   and 3 K2 (exact) or 50 K1, 22 K3 and 3 K2 (balanced), and depth and f_px
+   must equal an eager runner's with the same params on the same frames bit
+   for bit. Printed beside the card's name and power limit: export and load
+   seconds, the artifact's bytes, the first-batch latency of a fresh runner
+   (its build and its first batch of 2) with the artifact and without it,
+   and frames/s of both over the same 32-frame window.
+
 Before each path's run every launch count is set to 0 and it is read just
 after; launches made to compare a kernel with its plain version do not
 count. The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -178,6 +191,8 @@ from ml_depth_pro_video_tpu_torch.cli import (
     view_pointcloud,
 )
 from ml_depth_pro_video_tpu_torch.cli import pipeline as cli_pipeline
+from ml_depth_pro_video_tpu_torch.ckpt.export import load_exported
+from ml_depth_pro_video_tpu_torch.ckpt.export import main as export_main
 from ml_depth_pro_video_tpu_torch.ckpt.params import (
     from_numpy_tree,
     init_depth_pro,
@@ -201,6 +216,7 @@ from ml_depth_pro_video_tpu_torch.kernels.loader import load_library
 from ml_depth_pro_video_tpu_torch.models import vit as vit_module
 from ml_depth_pro_video_tpu_torch.models.depth_pro import (
     DepthProConfig,
+    apply_speed,
     forward,
     infer_fn,
     model_preset,
@@ -322,6 +338,9 @@ POISSON_SCREEN, POISSON_VOXEL = 4.0, 0.05  # create_mesh_from_pointcloud's defau
 # the card's chi against the CPU's, share of max |chi|: fp32 in the same op order on both, the dot
 # products summed in float64 (tests/test_torch_mesh.py holds the CPU's against JAX's under it)
 POISSON_BOUND = 1e-4
+EXPORT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_export"  # ignored by git
+EXPORT_FRAMES = 4  # two forwards at BATCH per runner, compared bit for bit
+EXPORT_TIMED = 32  # the frames/s window of the artifact and of the eager runner
 
 
 def log(msg: str) -> None:
@@ -1922,6 +1941,85 @@ def phase_speed_accuracy() -> None:
         f"{', '.join(map(str, PROXY_RATIOS))}")
 
 
+def first_batch_s(frames: list, **kwargs) -> tuple[DepthVideoRunner, float]:
+    """A fresh large-preset runner (bf16, batch ``BATCH``, seed ``SEED``) and
+    the seconds from its build to the end of its first batch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = DepthVideoRunner(cfg=model_preset("large"), precision="bf16", batch_size=BATCH,
+                              rng_seed=SEED, decode_pool="thread", device="cuda", **kwargs)
+    sum(1 for _ in runner.depth_stream(frames[:BATCH]))
+    torch.cuda.synchronize()
+    return runner, time.perf_counter() - t0
+
+
+def phase_export() -> dict:
+    """``depth-pro-export-torch`` at the large preset for exact and balanced;
+    each artifact served by a fresh runner against an eager one."""
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 11)
+    size = model_preset("large").img_size
+    frames = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(EXPORT_FRAMES)]
+    window = [frames[i % len(frames)] for i in range(EXPORT_TIMED)]
+    forwards = math.ceil(EXPORT_FRAMES / BATCH)
+    total = {name: 0 for name in KERNELS}
+    for speed in ("exact", "balanced"):
+        tag = f"export {speed}"
+        path = EXPORT_DIR / f"large_{speed}.pt2"
+        t0 = time.perf_counter()
+        export_main(["-o", str(path), "--model", "large", "--precision", "bf16", "--batch_size",
+                     str(BATCH), "--speed", speed, "--device", "cuda"])
+        export_s = time.perf_counter() - t0
+        cfg = model_preset("large") if speed == "exact" else apply_speed(model_preset("large"),
+                                                                         speed)
+        t0 = time.perf_counter()
+        load_exported(str(path), cfg, "bf16", quantize=False, n_devices=1, device="cuda").module()
+        load_s = time.perf_counter() - t0
+        served, served_first = first_batch_s(frames, speed=speed, exported_path=str(path))
+        eager, eager_first = first_batch_s(frames, speed=speed)
+        calls = served.exported_calls
+        torch.cuda.synchronize()
+        reset_launches()
+        got = list(served.depth_stream(frames))
+        torch.cuda.synchronize()
+        launches = read_launches()
+        calls = served.exported_calls - calls
+        want = {name: n * forwards for name, n in PER_FORWARD[speed].items()}
+        if launches != want or calls != forwards:
+            raise AssertionError(f"{tag}: launches {launches} (want {want}), {calls} of "
+                                 f"{forwards} forwards through the artifact")
+        ref = list(eager.depth_stream(frames))
+        if eager.exported_calls:
+            raise AssertionError(f"{tag}: the eager runner called an artifact")
+        diff = max(float(np.abs(g["depth"] - r["depth"]).max()) for g, r in zip(got, ref))
+        f_diff = max(abs(g["focallength_px"] - r["focallength_px"]) for g, r in zip(got, ref))
+        same = all(np.array_equal(g["depth"], r["depth"])
+                   and g["focallength_px"] == r["focallength_px"] for g, r in zip(got, ref))
+        log(f"[{tag}] {EXPORT_FRAMES} frames of {size}x{size} through the artifact: launches "
+            f"{launches} ({forwards} forwards, all {calls} through it); against the eager "
+            f"runner: equal bit for bit {same} (max |depth diff| {diff:.3e} m, |f_px diff| "
+            f"{f_diff:.3e})")
+        if not same:
+            again = list(eager.depth_stream(frames))
+            eager_same = all(np.array_equal(a["depth"], r["depth"]) for a, r in zip(again, ref))
+            raise AssertionError(f"{tag}: the artifact's depth differs from the eager runner's "
+                                 f"(max {diff:.3e} m); the eager runner against itself: equal "
+                                 f"{eager_same}")
+        fps = frames_per_s(served, window, BATCH)
+        eager_fps = frames_per_s(eager, window, BATCH)
+        log(f"[{tag}] export {export_s:.3f} s, load {load_s:.3f} s, artifact "
+            f"{path.stat().st_size} bytes; first batch of a fresh runner (build + {BATCH} "
+            f"frames): {served_first:.3f} s with the artifact, {eager_first:.3f} s without; "
+            f"frames/s over {EXPORT_TIMED} frames: {fps} with, {eager_fps} without "
+            f"(large, bf16, batch {BATCH}) on {card()}")
+        total = {name: total[name] + launches[name] for name in KERNELS}
+        del served, eager
+        torch.cuda.empty_cache()
+    shutil.rmtree(EXPORT_DIR)
+    return total
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -1945,7 +2043,8 @@ def main() -> int:
     paths["quantize"] = phase_quantize(serve_runner, serve_built, exact_fps)
     del serve_runner
     torch.cuda.empty_cache()
-    paths["maps_cli"] = phase_maps_cli()  # last: its decode pool's processes come and go
+    paths["maps_cli"] = phase_maps_cli()  # its decode pool's processes come and go
+    paths["export"] = phase_export()
     kernels = []
     for key, k in KERNELS.items():
         by_path = {name: counts[key] for name, counts in paths.items()}

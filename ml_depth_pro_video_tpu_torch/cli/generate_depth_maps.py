@@ -7,12 +7,13 @@ colormapped or 16-bit grayscale PNGs with optional metric ``.npz``; or, with
 ``--video_out``, a video file or frame directory straight into a colormapped
 depth video with a stable color range, optional temporal smoothing and
 [RGB | depth] frames. ``--packed_fetch`` fetches depth as log-u16 codes
-(``video/pack.py``). ``--device`` picks the card (default ``cuda``).
+(``video/pack.py``). ``--device`` picks the card (default ``cuda``), and
+``--exported`` serves the forwards of the maps from a
+``depth-pro-export-torch`` artifact (the runner's ``exported_path``).
 
 Not here yet: the multi-host (pod) flags, which wait for the port's
-``parallel/``; ``--exported`` raises ``NotImplementedError`` as the runner's
-``exported_path`` does. PNG output needs Pillow, colormaps other than gray
-need matplotlib, and video input and output need OpenCV (or imageio).
+``parallel/``. PNG output needs Pillow, colormaps other than gray need
+matplotlib, and video input and output need OpenCV (or imageio).
 """
 
 from __future__ import annotations
@@ -262,8 +263,8 @@ def main(argv=None) -> None:
     ap.add_argument("--save_npz", action="store_true")
     ap.add_argument("--pattern", default="*.png")
     ap.add_argument("--exported", default=None,
-                    help="an exported model artifact (not ported yet: raises "
-                         "NotImplementedError)")
+                    help="an artifact of depth-pro-export-torch (exported at --batch_size "
+                         "and the model's resolution; other batches run eagerly); on the card it currently starts and runs slower than eager code (PERF.md, ROADMAP B8)")
     ap.add_argument("--packed_fetch", action="store_true",
                     help="fetch depth as device-quantized log-u16 (half the device->host "
                          "bytes; <=1.5e-4 relative error, video/pack.py)")

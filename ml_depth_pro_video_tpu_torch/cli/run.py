@@ -6,8 +6,9 @@ Same behaviour as the JAX package's ``depth-pro-run``
 directory, EXIF focal length when available, ``.npz`` metric depth (key
 ``depth``) and a turbo JPEG of inverse depth with the reference's
 [1/250, 1/0.1] display clamps, outputs mirroring the input's
-subdirectories. ``--device`` picks the card (default ``cuda``); decoding
-images needs Pillow.
+subdirectories. ``--device`` picks the card (default ``cuda``);
+``--exported`` serves the forwards from a ``depth-pro-export-torch``
+artifact; decoding images needs Pillow.
 """
 
 from __future__ import annotations
@@ -49,7 +50,8 @@ def run(args) -> None:
 
     runner = DepthVideoRunner(cfg=model_preset(args.model),
                               precision="bf16" if args.half else "fp32",
-                              batch_size=args.batch_size, speed=args.speed, device=args.device)
+                              batch_size=args.batch_size, speed=args.speed,
+                              exported_path=args.exported, device=args.device)
 
     fig = ax_rgb = ax_disp = None
     if not args.skip_display:
@@ -108,6 +110,9 @@ def main(argv=None) -> None:
                     help="exact, or an approximate ToMe token-merging tier (balanced, fast)")
     ap.add_argument("--model", choices=list(MODEL_PRESETS), default="large",
                     help="model family member")
+    ap.add_argument("--exported", default=None,
+                    help="an artifact of depth-pro-export-torch: full batches at its shape run "
+                         "through it (export with the same --batch-size); on the card it currently starts and runs slower than eager code (PERF.md, ROADMAP B8)")
     ap.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     ap.add_argument("-v", "--verbose", action="store_true")
     ap.add_argument("--skip-display", action="store_true", default=False,

@@ -11,6 +11,12 @@ root (an installed copy, outside a checkout, uses
 keyed by a hash of the sources and the flags, so an edited kernel
 is rebuilt and an unchanged one is reused. A failed build raises; there
 is no fallback.
+
+Each :class:`Kernel` is launched from the CUDA kernel of its ``torch.library``
+custom operator (``ops/attention.py``, ``ops/resblock.py``), the one place
+that reads data pointers and the stream. ``Kernel.launches`` counts those
+launches whether eager code or an exported program (``ckpt/export.py``)
+called the operator.
 """
 
 from __future__ import annotations

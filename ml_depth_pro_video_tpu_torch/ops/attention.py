@@ -13,12 +13,18 @@ body read through per-tensor strides) replace the Pallas kernels:
   bias (B, S) (ToMe proportional attention: log token sizes);
 - K4 ``_flash_attention``: separate q, k, v of shape (B, H, S, D).
 
-Each wrapper takes its plain PyTorch version for a CPU tensor and launches
-its kernel for a CUDA tensor, or raises. ``attention_packed`` and
-``multi_head_attention`` route like the JAX package, which computes any head
-dim and dtype (Pallas where it can, XLA otherwise): a head dim or dtype the
-kernels do not take (``kernel_takes``) goes to the plain version. Backward
-recomputes through the plain math, as the JAX custom VJPs do.
+Each kernel is a ``torch.library`` custom operator, so that a traced graph
+(``torch.export``, ``torch.compile``) names the kernel it runs:
+``depth_pro::attention_packed`` (K1), ``depth_pro::attention_packed_bias``
+(K3) and ``depth_pro::attention_bhsd`` (K4). Its CUDA kernel launches the
+hand-written kernel (pointers, alignment checks and the stream are read
+there only), its CPU kernel is the plain PyTorch version, and a tensor on
+any other device raises; a fake kernel gives the output's shape to tracing.
+``attention_packed`` and ``multi_head_attention`` route like the JAX
+package, which computes any head dim and dtype (Pallas where it can, XLA
+otherwise): a head dim or dtype the kernels do not take (``kernel_takes``)
+goes to the plain version. Backward recomputes through the plain math, as
+the JAX custom VJPs do.
 """
 
 from __future__ import annotations
@@ -145,77 +151,109 @@ def _attention_bhsd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     return out
 
 
-def _on_cpu(name: str, t: torch.Tensor) -> bool:
-    """True for a CPU tensor (plain version), False for CUDA (kernel); raise otherwise."""
-    if t.is_cuda:
-        return False
-    if t.device.type == "cpu":
-        return True
-    raise ValueError(f"{name}: unsupported device {t.device}")
-
-
 # ---------------------------------------------------------------------------
-# differentiable wrappers: kernel forward, plain-math backward
+# the kernels as operators: a CUDA kernel (the hand-written one), a CPU kernel
+# (the plain version), a fake kernel that reads only shapes (so torch.export,
+# torch.compile and AOTAutograd trace through them) and a backward that
+# recomputes through the plain math, as the JAX custom VJPs do. No default
+# kernel: a tensor on any other device raises in the dispatcher.
 
 
-class _AttentionPacked(torch.autograd.Function):
-    """Forward: K1 (no bias) or K3 (bias) on CUDA, the plain version on the
-    CPU. Backward recomputes through the plain math and returns gradients
-    for qkv and the bias."""
+@torch.library.custom_op("depth_pro::attention_packed", mutates_args=(), device_types="cuda")
+def attention_packed_op(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """K1: (B, S, 3*D) packed qkv -> (B, S, D)."""
+    return _attention_packed_cuda(qkv, num_heads)
 
-    @staticmethod
-    def forward(ctx, qkv: torch.Tensor, num_heads: int, key_bias: torch.Tensor | None):
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(qkv, key_bias)
-        if _on_cpu("attention_packed", qkv):
-            return attention_packed_reference(qkv, num_heads, key_bias)
-        return _attention_packed_cuda(qkv, num_heads, key_bias)
 
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        qkv, key_bias = ctx.saved_tensors
-        with torch.enable_grad():
-            inputs = [qkv.detach().requires_grad_(True)]
-            if key_bias is not None:
-                inputs.append(key_bias.detach().requires_grad_(True))
-            out = attention_packed_reference(inputs[0], ctx.num_heads,
-                                             inputs[1] if key_bias is not None else None)
-            grads = torch.autograd.grad(out, inputs, grad)
-        return grads[0], None, (grads[1] if key_bias is not None else None)
+@torch.library.custom_op("depth_pro::attention_packed_bias", mutates_args=(),
+                         device_types="cuda")
+def attention_packed_bias_op(qkv: torch.Tensor, key_bias: torch.Tensor,
+                             num_heads: int) -> torch.Tensor:
+    """K3: K1 plus an fp32 per-key score bias (B, S)."""
+    return _attention_packed_cuda(qkv, num_heads, key_bias)
+
+
+@torch.library.custom_op("depth_pro::attention_bhsd", mutates_args=(), device_types="cuda")
+def attention_bhsd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K4: attention over (B, H, S, D) q, k, v."""
+    return _attention_bhsd_cuda(q, k, v)
+
+
+@attention_packed_op.register_kernel("cpu")
+def _(qkv, num_heads):
+    return attention_packed_reference(qkv, num_heads)
+
+
+@attention_packed_bias_op.register_kernel("cpu")
+def _(qkv, key_bias, num_heads):
+    return attention_packed_reference(qkv, num_heads, key_bias)
+
+
+@attention_bhsd_op.register_kernel("cpu")
+def _(q, k, v):
+    return attention_reference(q, k, v)
+
+
+def _packed_fake(qkv, *_):
+    b, s, d3 = qkv.shape
+    return qkv.new_empty((b, s, d3 // 3))
+
+
+attention_packed_op.register_fake(_packed_fake)
+attention_packed_bias_op.register_fake(_packed_fake)
+attention_bhsd_op.register_fake(lambda q, k, v: q.new_empty(q.shape))
+
+
+def plain_vjp(fn, inputs, grad, needs=None) -> tuple:
+    """Gradients of ``fn(*inputs)`` against ``grad`` through its plain math,
+    for the inputs ``needs`` marks (all by default; None for the others)."""
+    needs = needs or (True,) * len(inputs)
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        grads = iter(torch.autograd.grad(fn(*ins), [t for t in ins if t.requires_grad], grad))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+def save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _save_packed(ctx, inputs, output):
+    *tensors, ctx.num_heads = inputs
+    ctx.save_for_backward(*tensors)
+
+
+def _packed_backward(ctx, grad):
+    """Gradients for qkv (and the bias of K3); none for ``num_heads``."""
+    return (*plain_vjp(lambda qkv, *bias: attention_packed_reference(qkv, ctx.num_heads, *bias),
+                       ctx.saved_tensors, grad, ctx.needs_input_grad[:-1]), None)
+
+
+def _bhsd_backward(ctx, grad):
+    return plain_vjp(attention_reference, ctx.saved_tensors, grad, ctx.needs_input_grad)
+
+
+attention_packed_op.register_autograd(_packed_backward, setup_context=_save_packed)
+attention_packed_bias_op.register_autograd(_packed_backward, setup_context=_save_packed)
+attention_bhsd_op.register_autograd(_bhsd_backward, setup_context=save_inputs)
 
 
 def attention_packed(qkv: torch.Tensor, num_heads: int,
                      key_bias: torch.Tensor | None = None) -> torch.Tensor:
     """(B, S, 3*D) packed head-contiguous qkv -> (B, S, D) attention output.
     ``key_bias`` (B, S) fp32 is added to the scaled scores per key; without
-    it the exact path's kernel K1 runs and reads no bias. A head dim or
-    dtype the kernels do not take goes to the plain version."""
+    it the exact path's kernel K1 runs and reads no bias, with it K3. A head
+    dim or dtype the kernels do not take goes to the plain version."""
     if not kernel_takes(qkv.shape[-1] // (3 * num_heads), qkv.dtype):
         return attention_packed_reference(qkv, num_heads, key_bias)
-    return _AttentionPacked.apply(qkv, num_heads, key_bias)
-
-
-class _MultiHeadAttention(torch.autograd.Function):
-    """Forward: K4 on CUDA, the plain version on the CPU. Backward recomputes
-    through the plain math."""
-
-    @staticmethod
-    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-        ctx.save_for_backward(q, k, v)
-        if _on_cpu("multi_head_attention", q):
-            return attention_reference(q, k, v)
-        return _attention_bhsd_cuda(q, k, v)
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-            return torch.autograd.grad(attention_reference(*inputs), inputs, grad)
+    if key_bias is None:
+        return attention_packed_op(qkv, num_heads)
+    return attention_packed_bias_op(qkv, key_bias, num_heads)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Self-attention over (B, H, S, D) tensors with 1/sqrt(D) scaling. A head
-    dim or dtype the kernels do not take goes to the plain version."""
+    """Self-attention over (B, H, S, D) tensors with 1/sqrt(D) scaling (K4). A
+    head dim or dtype the kernel does not take goes to the plain version."""
     if not kernel_takes(q.shape[-1], q.dtype):
         return attention_reference(q, k, v)
-    return _MultiHeadAttention.apply(q, k, v)
+    return attention_bhsd_op(q, k, v)

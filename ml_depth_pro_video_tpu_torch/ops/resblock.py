@@ -5,8 +5,9 @@ convs are 3x3, pad 1; x is NHWC, weights HWIO (3, 3, C, C), biases (C,).
 
 ``residual_block_reference`` is the plain PyTorch composition. The port's
 kernel K2 (``csrc/resblock.cu``) replaces the Pallas kernel
-``_resblock_pallas``; ``fused_residual_block`` takes the plain version for
-a CPU tensor and launches K2 for a CUDA tensor, or raises.
+``_resblock_pallas``. It is the custom operator ``depth_pro::resblock``
+(``resblock_op``), so that a traced graph names it: the plain version for a
+CPU tensor, K2 for a CUDA tensor, and a raise for any other device.
 ``residual_block`` routes like the JAX package: bf16 square-channel blocks
 of at most 256 channels, a multiple of 8, at the decoder's small levels go
 through ``fused_residual_block``; everything else (fp32 parity mode, the
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.loader import Kernel, KernelLaunchError, load_library
+from .attention import plain_vjp, save_inputs
 from .conv import conv2d
 
 K2 = Kernel(
@@ -88,32 +90,36 @@ def _resblock_cuda(x, w1, b1, w2, b2):
     return out
 
 
-class _ResidualBlock(torch.autograd.Function):
-    """Forward: K2 on CUDA, the plain version on the CPU. Backward
-    recomputes through the plain composition (as the JAX custom VJP does)."""
+@torch.library.custom_op("depth_pro::resblock", mutates_args=(), device_types="cuda")
+def resblock_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                b2: torch.Tensor) -> torch.Tensor:
+    """K2 as an operator: its CUDA kernel launches K2, its CPU kernel is the
+    plain composition, a tensor on any other device raises; the fake kernel
+    gives tracing the output's shape, and backward recomputes through the
+    plain composition (as the JAX custom VJP does)."""
+    return _resblock_cuda(x, w1, b1, w2, b2)
 
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2):
-        ctx.save_for_backward(x, w1, b1, w2, b2)
-        if x.is_cuda:
-            return _resblock_cuda(x, w1, b1, w2, b2)
-        if x.device.type == "cpu":
-            return residual_block_reference(x, w1, b1, w2, b2)
-        raise ValueError(f"fused_residual_block: unsupported device {x.device}")
 
-    @staticmethod
-    def backward(ctx, grad):
-        needs = ctx.needs_input_grad
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
-            out = residual_block_reference(*inputs)
-            grads = iter(torch.autograd.grad(out, [t for t in inputs if t.requires_grad], grad))
-        return tuple(next(grads) if n else None for n in needs)
+@resblock_op.register_kernel("cpu")
+def _(x, w1, b1, w2, b2):
+    return residual_block_reference(x, w1, b1, w2, b2)
+
+
+@resblock_op.register_fake
+def _(x, w1, b1, w2, b2):
+    return x.new_empty(x.shape)
+
+
+def _backward(ctx, grad):
+    return plain_vjp(residual_block_reference, ctx.saved_tensors, grad, ctx.needs_input_grad)
+
+
+resblock_op.register_autograd(_backward, setup_context=save_inputs)
 
 
 def fused_residual_block(x, w1, b1, w2, b2):
     """K2 on a CUDA tensor, the plain version on a CPU tensor."""
-    return _ResidualBlock.apply(x, w1, b1, w2, b2)
+    return resblock_op(x, w1, b1, w2, b2)
 
 
 def residual_block(x, w1, b1, w2, b2):

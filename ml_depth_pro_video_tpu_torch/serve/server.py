@@ -481,9 +481,14 @@ def create_server(host: str = "127.0.0.1", port: int = 8500, runner=None,
 
     ``warmup_shape=(H, W)`` runs one full batch before the server accepts
     traffic, so that the first request does not pay for the kernels' build
-    and the allocator's first growth. ``parallel="dp"|"latency"`` with one
-    visible card runs unsharded; over more cards it is not ported yet
-    (ROADMAP A item 10), nor is ``exported_path`` (item 9)."""
+    and the allocator's first growth. ``exported_path`` serves the batches
+    from a ``depth-pro-export-torch`` artifact exported at ``--batch_size
+    max_batch``: the batcher canonicalises every request to the model's
+    size, so every batch has its shape (on the card the artifact currently
+    starts and runs slower than eager code: PERF.md, ROADMAP B8).
+    ``parallel="dp"|"latency"`` with
+    one visible card runs unsharded; over more cards it is not ported yet
+    (ROADMAP A item 10)."""
     from ..models.depth_pro import model_preset
     from ..video.runner import DepthVideoRunner
 
@@ -538,7 +543,8 @@ def main(argv=None):
                     help="ToMe token-merge approximation tiers "
                          "(balanced=0.25, fast=0.5 merge ratio)")
     ap.add_argument("--exported", default=None,
-                    help="AOT artifact (not ported yet: ROADMAP A item 9)")
+                    help="an artifact of depth-pro-export-torch, exported with --batch_size "
+                         "equal to --max_batch; on the card it currently starts and runs slower than eager code (PERF.md, ROADMAP B8)")
     ap.add_argument("--quantize", action="store_true",
                     help="int8 weight-only ViT: the three ViTs' block matmul weights held "
                          "as int8 with per-channel scales (a quarter of their fp32 size), "

@@ -15,9 +15,14 @@ smooths the stream in playback order (``video/temporal.py``) and
 (``video/pack.py``): both run on the device right behind their batch's
 compute, and the host unpacks at collect time. ``quantize=True`` stores the
 ViTs' block matmul weights as int8 with per-channel scales
-(``ckpt/quantize.py``). Options of the JAX runner that this port does not
-implement yet (meshes and latency parallelism: ROADMAP A item 10; the AOT
-export: item 9) raise ``NotImplementedError`` when set.
+(``ckpt/quantize.py``). ``exported_path`` serves full uint8 batches at the
+artifact's shape through a ``torch.export`` program (``ckpt/export.py``);
+on the card it currently builds and runs slower than eager code (a longer
+first batch from the artifact's load, and fewer frames/s: PERF.md,
+ROADMAP B8), so it pins the validated program rather than speeding it up.
+Options of the JAX runner that this port does not implement yet (meshes and
+latency parallelism: ROADMAP A item 10) raise ``NotImplementedError`` when
+set.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from ..ckpt.export import load_exported, user_inputs
 from ..ckpt.quantize import quantize_vit_weights
 from ..core.precision import disable_tf32, resolve_device, resolve_precision
 from ..io.image import load_stream_item
@@ -45,6 +51,7 @@ from ..models.depth_pro import (
     build_params,
     infer_fn,
 )
+from ..utils.compile_cache import enable_compilation_cache
 from . import pack, temporal
 
 LOGGER = logging.getLogger(__name__)
@@ -111,18 +118,16 @@ class DepthVideoRunner:
                              f"got {decode_pool!r}")
         if not 0.0 <= float(temporal_smooth) < 1.0:
             raise ValueError(f"temporal_smooth must be in [0, 1), got {temporal_smooth}")
-        unported = {"mesh": (mesh is not None, "10 (parallel/ on torch.distributed)"),
-                    "parallel='latency'": (parallel != "dp",
-                                           "10 (parallel/ on torch.distributed)"),
-                    "exported_path": (exported_path is not None,
-                                      "9 (export waits on the kernels' registration as "
-                                      "torch.library custom ops)")}
-        for name, (is_set, item) in unported.items():
+        for name, is_set in (("mesh", mesh is not None), ("parallel='latency'", parallel != "dp")):
             if is_set:
                 raise NotImplementedError(f"DepthVideoRunner({name}) is not ported to the "
-                                          f"PyTorch runner yet: ROADMAP A item {item}")
+                                          "PyTorch runner yet: ROADMAP A item 10 (parallel/ on "
+                                          "torch.distributed)")
         if speed != "exact":
             cfg = apply_speed(cfg, speed)
+        # inductor's FX-graph cache for compiled programs, as the JAX runner
+        # configures XLA's (utils/compile_cache.py; off without a card)
+        enable_compilation_cache()
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             disable_tf32()
@@ -147,6 +152,21 @@ class DepthVideoRunner:
             params = quantize_vit_weights(params)
         self.model = DepthProModel(params, cfg).eval()
         self.params = self.model.tree()
+        # the exported program (ckpt/export.py) serves uint8 batches at its
+        # exact shape without per-frame f_px; everything else runs eagerly
+        self._program = None
+        self.exported_calls = 0
+        if exported_path is not None:
+            exported = load_exported(exported_path, cfg, self.precision, quantize=quantize,
+                                     n_devices=1, device=self.device)
+            self._program = exported.module()
+            self._exported_shape = tuple(user_inputs(exported)[-1].shape)
+            self._eager_keys: set = set()
+            if self._exported_shape[0] != self.batch_size:
+                LOGGER.warning("exported artifact batch=%d but runner batch_size=%d: full "
+                               "batches will run eagerly instead of through the artifact "
+                               "(re-export with --batch_size %d)", self._exported_shape[0],
+                               self.batch_size, self.batch_size)
 
     # ------------------------------------------------------------------
     def _infer(self, xs: np.ndarray, f_arr: np.ndarray | None, mixed: bool) -> dict:
@@ -155,6 +175,19 @@ class DepthVideoRunner:
         x = torch.from_numpy(xs)
         if self.device.type == "cuda":
             x = x.pin_memory().to(self.device, non_blocking=True)
+        if self._program is not None:
+            key = (tuple(x.shape), x.dtype, f_arr is not None, mixed)
+            if key == (self._exported_shape, torch.uint8, False, False):
+                self.exported_calls += 1
+                with torch.inference_mode():
+                    return self._program(self.params, x)
+            if key not in self._eager_keys:
+                # without a notice, frames at another size would quietly
+                # never reach the artifact
+                self._eager_keys.add(key)
+                LOGGER.warning("exported artifact does not serve this batch (shape %s dtype %s, "
+                               "f_px=%s, mixed=%s; artifact wants %s uint8, no per-frame "
+                               "f_px): running eagerly", *key, self._exported_shape)
         x = x.float() / 127.5 - 1.0
         f = None if f_arr is None else torch.from_numpy(f_arr).to(self.device)
         with torch.inference_mode():

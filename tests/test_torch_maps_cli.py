@@ -25,6 +25,7 @@ from ml_depth_pro_video_tpu.cli import smooth_depth as jsmooth
 from ml_depth_pro_video_tpu.models.depth_pro import tiny_config as j_tiny_config
 from ml_depth_pro_video_tpu.video.runner import DepthVideoRunner as JaxRunner
 from ml_depth_pro_video_tpu_torch.ckpt import convert as tconvert
+from ml_depth_pro_video_tpu_torch.ckpt.export import main as export_main
 from ml_depth_pro_video_tpu_torch.cli import generate_depth_maps as tmaps
 from ml_depth_pro_video_tpu_torch.cli import smooth_depth as tsmooth
 from ml_depth_pro_video_tpu_torch.models.depth_pro import tiny_config
@@ -127,11 +128,35 @@ def test_main_writes_packed_gray16_maps_and_npz(tmp_path, capsys):
     assert "Successfully wrote 3/3" in capsys.readouterr().out
 
 
+def test_main_writes_maps_through_an_artifact(tmp_path, monkeypatch):
+    """``depth-pro-maps-torch --exported``: frames at the tiny model's 512^2 in
+    batches of 2 (the last one padded) go through the artifact, and the npz
+    files equal an eager run's bit for bit."""
+    frames = _frames_dir(tmp_path / "frames", n=3, h=512, w=512, seed=7)
+    art = str(tmp_path / "tiny.pt2")
+    export_main(["-o", art, "--tiny", "--device", "cpu", "--batch_size", "2"])
+    runners = []
+
+    class Recording(DepthVideoRunner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runners.append(self)
+
+    monkeypatch.setattr(tmaps, "DepthVideoRunner", Recording)
+    outs = []
+    for extra in (["--exported", art], []):
+        outs.append(tmp_path / f"out{len(outs)}")
+        tmaps.main([str(frames), "-o", str(outs[-1]), "--model", "tiny", "--device", "cpu",
+                    "--save_npz", "--batch_size", "2", *extra])
+    assert [r.exported_calls for r in runners] == [2, 0]
+    names = sorted(p.name for p in outs[0].glob("*_depth.npz"))
+    assert len(names) == 3 and names == sorted(p.name for p in outs[1].glob("*_depth.npz"))
+    for name in names:
+        assert np.array_equal(np.load(outs[0] / name)["depth"], np.load(outs[1] / name)["depth"])
+
+
 def test_main_refuses_what_is_not_ported(tmp_path):
     frames = _frames_dir(tmp_path / "frames", n=1)
-    with pytest.raises(NotImplementedError):
-        tmaps.main([str(frames), "-o", str(tmp_path / "o"), "--model", "tiny", "--device",
-                    "cpu", "--exported", "model.bin"])
     with pytest.raises(SystemExit):  # no multi-host flags yet
         tmaps.main([str(frames), "-o", str(tmp_path / "o"), "--coordinator_address", "x:1"])
     with pytest.raises(SystemExit):  # a video file needs --video_out

@@ -189,21 +189,25 @@ def _log_sizes(rng, shape):
 def test_attention_routes_like_jax(monkeypatch, hd, dtype, kernel):
     """Head dims and dtypes that K1/K3/K4 take go to the kernels; others (hd 48
     and 80, fp16) take the plain version by a shape and dtype gate, as the JAX
-    package computes them through XLA. The CUDA launchers are replaced by
-    recorders and the device check made to say CUDA, so the route shows here."""
+    package computes them through XLA. The kernels' operators are replaced by
+    recorders, so the route shows here."""
     launched = []
 
-    def fake_packed(qkv, heads, key_bias=None):
+    def fake_packed(qkv, heads):
         launched.append("packed")
+        return tattn.attention_packed_reference(qkv, heads)
+
+    def fake_packed_bias(qkv, key_bias, heads):
+        launched.append("packed_bias")
         return tattn.attention_packed_reference(qkv, heads, key_bias)
 
     def fake_bhsd(q, k, v):
         launched.append("bhsd")
         return tattn.attention_reference(q, k, v)
 
-    monkeypatch.setattr(tattn, "_on_cpu", lambda name, t: False)
-    monkeypatch.setattr(tattn, "_attention_packed_cuda", fake_packed)
-    monkeypatch.setattr(tattn, "_attention_bhsd_cuda", fake_bhsd)
+    monkeypatch.setattr(tattn, "attention_packed_op", fake_packed)
+    monkeypatch.setattr(tattn, "attention_packed_bias_op", fake_packed_bias)
+    monkeypatch.setattr(tattn, "attention_bhsd_op", fake_bhsd)
     g = torch.Generator().manual_seed(5)
     heads, s = 2, 9
     qkv = torch.randn(2, s, 3 * heads * hd, generator=g).to(dtype)
@@ -211,7 +215,7 @@ def test_attention_routes_like_jax(monkeypatch, hd, dtype, kernel):
     q, k, v = tattn._split_packed(qkv, heads)
     outs = [tattn.attention_packed(qkv, heads), tattn.attention_packed(qkv, heads, bias),
             tattn.multi_head_attention(q, k, v)]
-    assert launched == (["packed", "packed", "bhsd"] if kernel else [])
+    assert launched == (["packed", "packed_bias", "bhsd"] if kernel else [])
     assert tattn.kernel_takes(hd, dtype) == kernel
     refs = [tattn.attention_packed_reference(qkv, heads),
             tattn.attention_packed_reference(qkv, heads, bias), tattn.attention_reference(q, k, v)]

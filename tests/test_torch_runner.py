@@ -17,7 +17,10 @@ from PIL import Image
 
 from ml_depth_pro_video_tpu.models.depth_pro import tiny_config as j_tiny_config
 from ml_depth_pro_video_tpu.video.runner import DepthVideoRunner as JaxRunner
+from ml_depth_pro_video_tpu_torch.ckpt.export import export_infer
+from ml_depth_pro_video_tpu_torch.ckpt.export import main as export_main
 from ml_depth_pro_video_tpu_torch.cli import run as cli_run
+from ml_depth_pro_video_tpu_torch.video import runner as runner_module
 from ml_depth_pro_video_tpu_torch.models.depth_pro import tiny_config
 from ml_depth_pro_video_tpu_torch.video.runner import DepthVideoRunner
 from torch_checkpoint import write_tiny_checkpoint
@@ -146,12 +149,35 @@ def test_runner_retries_device_errors_only(checkpoint, monkeypatch):
     assert len(calls) == 1  # deterministic failures are not retried
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"parallel": "latency"},
-                                    {"exported_path": "x.bin"}])
+@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"parallel": "latency"}])
 def test_unported_runner_options_raise(kwargs):
-    item = "9" if "exported_path" in kwargs else "10"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP A item {item} "):
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 10 "):
         DepthVideoRunner(cfg=tiny_config(), device="cpu", **kwargs)
+
+
+def test_runner_serves_exported_artifact(checkpoint, tmp_path, caplog):
+    """Full batches at ``img_size`` go through the artifact and equal the
+    eager runner's bit for bit; a batch at another size warns once and runs
+    eagerly."""
+    cfg = dataclasses.replace(tiny_config(), checkpoint_uri=checkpoint)
+    path = str(tmp_path / "tiny.pt2")
+    export_infer(cfg, "fp32", batch_size=2, path=path, device="cpu")
+    kw = dict(cfg=cfg, precision="fp32", batch_size=2, decode_workers=1, device="cpu")
+    served, eager = DepthVideoRunner(exported_path=path, **kw), DepthVideoRunner(**kw)
+    frames = _frames(3, cfg.img_size, cfg.img_size, seed=4)  # a full batch, then a padded one
+    for got, want in zip(served.depth_stream(frames), eager.depth_stream(frames), strict=True):
+        assert np.array_equal(got["depth"], want["depth"])
+        assert got["focallength_px"] == want["focallength_px"]
+    assert served.exported_calls == 2 and eager.exported_calls == 0
+    small = _frames(2, seed=5)
+    with caplog.at_level("WARNING"):
+        got = [r["depth"] for r in served.depth_stream(small + small)]
+    assert served.exported_calls == 2
+    assert sum("does not serve this batch" in r.message for r in caplog.records) == 1
+    for g, w in zip(got, [r["depth"] for r in eager.depth_stream(small + small)], strict=True):
+        assert np.array_equal(g, w)
+    with pytest.raises(ValueError, match="quantized"):
+        DepthVideoRunner(exported_path=path, quantize=True, **kw)
 
 
 @pytest.mark.parametrize("speed", ["balanced", "fast"])
@@ -210,6 +236,32 @@ def test_cli_writes_depth_for_one_png(tmp_path, capsys):
     assert depth.shape == (40, 56) and np.isfinite(depth).all() and (depth > 0).all()
     assert (out / "frame.jpg").exists()
     assert "wrote" in capsys.readouterr().out
+
+
+def test_cli_serves_through_an_artifact(tmp_path, monkeypatch):
+    """``depth-pro-run-torch --exported`` runs the forward through the artifact
+    (an image at the tiny model's 512^2) and writes the eager run's depth."""
+    img = tmp_path / "in" / "frame.png"
+    img.parent.mkdir()
+    Image.fromarray(_frames(1, 512, 512, seed=6)[0]).save(img)
+    art = str(tmp_path / "tiny.pt2")
+    export_main(["-o", art, "--tiny", "--device", "cpu", "--precision", "fp32"])
+    runners = []
+
+    class Recording(DepthVideoRunner):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runners.append(self)
+
+    monkeypatch.setattr(runner_module, "DepthVideoRunner", Recording)
+    depths = []
+    for extra in (["--exported", art], []):
+        out = tmp_path / f"out{len(depths)}"
+        cli_run.main(["-i", str(img), "--model", "tiny", "--device", "cpu", "--skip-display",
+                      "--fp32", "-o", str(out), *extra])
+        depths.append(np.load(out / "frame.npz")["depth"])
+    assert [r.exported_calls for r in runners] == [1, 0]
+    assert np.array_equal(*depths)
 
 
 @pytest.mark.parametrize("speed", ["exact", "balanced", "fast"])

@@ -27,6 +27,7 @@ from PIL import Image
 from ml_depth_pro_video_tpu.models.depth_pro import tiny_config as j_tiny_config
 from ml_depth_pro_video_tpu.serve import server as jserver
 from ml_depth_pro_video_tpu.video.runner import DepthVideoRunner as JaxRunner
+from ml_depth_pro_video_tpu_torch.ckpt.export import main as export_main
 from ml_depth_pro_video_tpu_torch.models.depth_pro import tiny_config
 from ml_depth_pro_video_tpu_torch.serve import server
 from ml_depth_pro_video_tpu_torch.serve.server import _Batcher, _Sessions, create_server
@@ -445,8 +446,6 @@ def test_warmup_runs_one_canonical_full_batch():
 
 
 def test_unported_modes_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 9 "):
-        create_server(port=0, model="tiny", exported_path="x.bin", device="cpu")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     for parallel in ("dp", "latency"):  # more than one visible card
         with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
@@ -490,3 +489,41 @@ def test_cli_serves_one_request(monkeypatch, capsys):
     thread.join(30)
     assert not thread.is_alive() and not srv.batcher._thread.is_alive()
     assert f"serving on 127.0.0.1:{srv.server_address[1]} (cpu)" in capsys.readouterr().out
+
+
+def test_cli_serves_through_an_artifact(monkeypatch, tmp_path):
+    """``depth-pro-serve-torch --exported`` (tiny, bf16 as the server builds
+    its runner, ``--max_batch 1`` = the artifact's batch) answers a request
+    through the artifact, equal to an eager server's answer bit for bit."""
+    art = str(tmp_path / "tiny.pt2")
+    export_main(["-o", art, "--tiny", "--device", "cpu", "--batch_size", "1"])
+    made = []
+    real = server.create_server
+
+    def recording(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+
+    monkeypatch.setattr(server, "create_server", recording)
+    thread = threading.Thread(target=server.main, args=(
+        ["--device", "cpu", "--model", "tiny", "--host", "127.0.0.1", "--port", "0",
+         "--max_batch", "1", "--exported", art],), daemon=True)
+    thread.start()
+    deadline = time.monotonic() + 60
+    while not made and time.monotonic() < deadline:
+        time.sleep(0.05)
+    srv = made[0]
+    eager = real(port=0, model="tiny", max_batch=1, device="cpu")
+    try:
+        body = _png((40, 56, 3), 10)
+        got, _ = _post_npz(f"http://127.0.0.1:{srv.server_address[1]}", body)
+        want, _ = _post_npz(_serve(eager), body)
+        assert srv.batcher.runner.exported_calls == 1
+        assert eager.batcher.runner.exported_calls == 0
+        assert np.array_equal(got, want)
+    finally:
+        eager.shutdown()
+        eager.server_close()
+        srv.shutdown()
+        thread.join(30)
+    assert not thread.is_alive() and not srv.batcher._thread.is_alive()
