@@ -138,16 +138,33 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 8. export: ``depth-pro-export-torch`` (``ckpt/export.py::main``) writes the
    ``torch.export`` artifact of the ``large`` preset (bf16, batch 2, random
-   weights: the artifact holds none) for ``--speed exact`` and ``--speed
-   balanced``; for each, a fresh ``DepthVideoRunner(exported_path=...)``
-   streams 4 frames of 1536x1536 uint8 through ``depth_stream``: every
-   forward must go through the artifact (``exported_calls``), launching 72 K1
-   and 3 K2 (exact) or 50 K1, 22 K3 and 3 K2 (balanced), and depth and f_px
-   must equal an eager runner's with the same params on the same frames bit
-   for bit. Printed beside the card's name and power limit: export and load
-   seconds, the artifact's bytes, the first-batch latency of a fresh runner
-   (its build and its first batch of 2) with the artifact and without it,
-   and frames/s of both over the same 32-frame window.
+   weights: the artifact holds none) for ``--speed exact``, and
+   ``export_infer`` the ``--speed balanced`` one at ``EXPORT_CUT`` (the large
+   widths at the ToMe proxy's depth: 8 blocks, hooks after blocks 1 and 3);
+   for each, a fresh ``DepthVideoRunner(exported_path=...)`` streams 4 frames
+   of 1536x1536 uint8 through ``depth_stream``: every forward must go through
+   the artifact (``exported_calls``), launching 72 K1 and 3 K2 (exact) or 18
+   K1, 6 K3 and 3 K2 (balanced at 8 blocks), and depth and f_px must equal an
+   eager runner's with the same params on the same frames bit for bit.
+   Printed beside the card's name and power limit: export and load seconds,
+   the artifact's bytes, the first-batch latency of a fresh runner (its build
+   and its first batch of 2) with the artifact and without it, and frames/s of
+   both over the same 32-frame window.
+9. train: the plain backward of K1 at (70, 577, 3072) and of K2 at (2, 96,
+   96, 256) timed beside their forwards; then ``fit`` (``train/loop.py``) at
+   the ``large`` preset, bf16, 1536^2, batch 2, random weights from seed 0, on
+   8 pairs of 512^2 written by ``utils/synthetic.py::write_dataset``: 4 steps
+   with checkpoints every 2 and a metrics file, 96 K1 and 3 K2 per step,
+   finite losses; s/step after the first, peak memory, the checkpoint's
+   bytes and save / restore seconds, the restored state equal bit for bit, and
+   a resumed ``fit`` that continues to step 8; one step split into forward,
+   backward and optimizer (CUDA events); one loss + backward with the kernels
+   against the plain versions routed in (loss and flattened gradient, with
+   the final head bias raised by 0.5, beside the plain bf16 path against
+   fp32); one fp32 ``train_step`` of the tiny config, card against CPU;
+10. distill: ``distill`` (``train/distill.py``) with a ``large`` teacher runner
+   over 4 frames of 512^2, then the ``small`` student's ``fit`` for 2 steps:
+   4 labels, 48 K1 and 3 K2 per student step, s/step.
 
 Before each path's run every launch count is set to 0 and it is read just
 after; launches made to compare a kernel with its plain version do not
@@ -191,7 +208,9 @@ from ml_depth_pro_video_tpu_torch.cli import (
     view_pointcloud,
 )
 from ml_depth_pro_video_tpu_torch.cli import pipeline as cli_pipeline
-from ml_depth_pro_video_tpu_torch.ckpt.export import load_exported
+from ml_depth_pro_video_tpu_torch.ckpt.checkpointing import restore_train_state
+from ml_depth_pro_video_tpu_torch.ckpt.convert import save_params
+from ml_depth_pro_video_tpu_torch.ckpt.export import export_infer, load_exported
 from ml_depth_pro_video_tpu_torch.ckpt.export import main as export_main
 from ml_depth_pro_video_tpu_torch.ckpt.params import (
     from_numpy_tree,
@@ -213,12 +232,14 @@ from ml_depth_pro_video_tpu_torch.geom.ground import grid_ground_adjustment, nor
 from ml_depth_pro_video_tpu_torch.geom.pointcloud import PointCloud, read_ply
 from ml_depth_pro_video_tpu_torch.geom.unproject import depth_to_3d
 from ml_depth_pro_video_tpu_torch.kernels.loader import load_library
+from ml_depth_pro_video_tpu_torch.models import depth_pro as depth_pro_module
 from ml_depth_pro_video_tpu_torch.models import vit as vit_module
 from ml_depth_pro_video_tpu_torch.models.depth_pro import (
     DepthProConfig,
     apply_speed,
     forward,
     infer_fn,
+    load_checkpoint,
     model_preset,
     tiny_config,
 )
@@ -229,6 +250,7 @@ from ml_depth_pro_video_tpu_torch.ops.attention import (
     K4,
     _split_packed,
     attention_packed,
+    attention_packed_op,
     attention_packed_reference,
     attention_reference,
     multi_head_attention,
@@ -240,6 +262,17 @@ from ml_depth_pro_video_tpu_torch.ops.resblock import (
     k2_tile,
     residual_block_reference,
 )
+from ml_depth_pro_video_tpu_torch.train import distill as distill_module
+from ml_depth_pro_video_tpu_torch.train import loop as loop_module
+from ml_depth_pro_video_tpu_torch.train.data import DepthDataset
+from ml_depth_pro_video_tpu_torch.train.step import (
+    TrainState,
+    loss_fn,
+    make_optimizer,
+    make_train_step,
+    tree_leaves,
+    value_and_grad,
+)
 from ml_depth_pro_video_tpu_torch.ops.resize import resize2d
 from ml_depth_pro_video_tpu_torch.serve.server import (
     canonicalize,
@@ -250,6 +283,7 @@ from ml_depth_pro_video_tpu_torch.serve.server import (
 )
 from ml_depth_pro_video_tpu_torch.video import pipeline
 from ml_depth_pro_video_tpu_torch.video.pack import max_rel_error, pack_depth_u16, unpack_depth_u16
+from ml_depth_pro_video_tpu_torch.utils.synthetic import FAMILIES, write_dataset
 from ml_depth_pro_video_tpu_torch.video.runner import DepthVideoRunner
 from ml_depth_pro_video_tpu_torch.video.temporal import (
     TemporalSmoother,
@@ -341,6 +375,36 @@ POISSON_BOUND = 1e-4
 EXPORT_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_export"  # ignored by git
 EXPORT_FRAMES = 4  # two forwards at BATCH per runner, compared bit for bit
 EXPORT_TIMED = 32  # the frames/s window of the artifact and of the eager runner
+# the balanced artifact at the ToMe proxy's depth (8 blocks, hooks after blocks 1 and 3) and the
+# large preset's widths: its export and load take a third of the large artifact's; the exact
+# artifact stays at large
+EXPORT_CUT = dataclasses.replace(model_preset("large"),
+                                 vit=dataclasses.replace(model_preset("large").vit, depth=8),
+                                 hook_block_ids=(1, 3))
+# per forward of EXPORT_CUT at balanced: patch ViT blocks 0-1 exact, the merge, blocks 2-7 with
+# the size bias; image and FOV ViTs 8 blocks each
+EXPORT_CUT_PER_FORWARD = {"K1": 18, "K2": 3, "K3": 6, "K4": 0}
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"  # ignored by git
+TRAIN_PAIRS = 8  # write_dataset pairs of 512^2, resized to 1536^2 by DepthDataset: 4 steps at BATCH
+# per training step of the large preset (loss_fn: remat, no FOV head): 24 blocks x 2 ViTs in the
+# forward and again in the per-block recompute of the backward; the 3 decoder resblocks (48^2,
+# 96^2, 96^2) once, not recomputed. Backward through K1 and K2 is the plain math (no kernel)
+PER_TRAIN_STEP = {"K1": 96, "K2": 3, "K3": 0, "K4": 0}
+# the small student (ViT-S, 12 blocks, 6 heads x 64; decoder 96 wide): 12 x 2 x 2 K1, 3 K2
+PER_STUDENT_STEP = {"K1": 48, "K2": 3, "K3": 0, "K4": 0}
+DISTILL_FRAMES = 4  # labelled by a large teacher at BATCH: 2 forwards; the student takes 2 steps
+# one loss + backward with the kernels against the same with the plain versions routed in (large,
+# bf16, batch 2, the trained params): the loss's relative difference, the flattened gradient's
+# relative L2 distance and cosine, on the well-conditioned pixels (conditioned_depth)
+TRAIN_LOSS_BOUND, TRAIN_GRAD_L2, TRAIN_GRAD_COS = 1e-2, 5e-2, 0.99
+SILOG_EPS = 1e-6  # train/step.py::silog_loss's clamp of the canonical inverse depth
+# the tiny fp32 step: the card against the CPU, loss and every gradient leaf
+TINY_LOSS_RTOL, TINY_GRAD_RTOL, TINY_GRAD_ATOL = 1e-4, 1e-3, 1e-4
+# conditioned_depth's bound for the tiny step: the p99 of the two devices' relative difference in
+# the canonical map on this case is 3.4e-5; the pixels beyond it sit next to the head's ReLU 0, and
+# at 1e-4 (1e-3) two (45,560) gradient elements of the raw params fall outside rtol 1e-3 / atol
+# 1e-4 (scripts/torch_train_probe.py --tiny; PERF.md)
+TINY_CONDITIONING = 3e-5
 
 
 def log(msg: str) -> None:
@@ -1941,12 +2005,12 @@ def phase_speed_accuracy() -> None:
         f"{', '.join(map(str, PROXY_RATIOS))}")
 
 
-def first_batch_s(frames: list, **kwargs) -> tuple[DepthVideoRunner, float]:
-    """A fresh large-preset runner (bf16, batch ``BATCH``, seed ``SEED``) and
+def first_batch_s(frames: list, cfg: DepthProConfig, **kwargs) -> tuple[DepthVideoRunner, float]:
+    """A fresh runner of ``cfg`` (bf16, batch ``BATCH``, seed ``SEED``) and
     the seconds from its build to the end of its first batch."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    runner = DepthVideoRunner(cfg=model_preset("large"), precision="bf16", batch_size=BATCH,
+    runner = DepthVideoRunner(cfg=cfg, precision="bf16", batch_size=BATCH,
                               rng_seed=SEED, decode_pool="thread", device="cuda", **kwargs)
     sum(1 for _ in runner.depth_stream(frames[:BATCH]))
     torch.cuda.synchronize()
@@ -1954,8 +2018,9 @@ def first_batch_s(frames: list, **kwargs) -> tuple[DepthVideoRunner, float]:
 
 
 def phase_export() -> dict:
-    """``depth-pro-export-torch`` at the large preset for exact and balanced;
-    each artifact served by a fresh runner against an eager one."""
+    """``depth-pro-export-torch`` at the large preset for exact, and
+    ``export_infer`` at ``EXPORT_CUT`` (large widths, 8 blocks) for
+    balanced; each artifact served by a fresh runner against an eager one."""
     shutil.rmtree(EXPORT_DIR, ignore_errors=True)
     EXPORT_DIR.mkdir(parents=True)
     rng = np.random.default_rng(SEED + 11)
@@ -1966,18 +2031,21 @@ def phase_export() -> dict:
     total = {name: 0 for name in KERNELS}
     for speed in ("exact", "balanced"):
         tag = f"export {speed}"
-        path = EXPORT_DIR / f"large_{speed}.pt2"
+        base = model_preset("large") if speed == "exact" else EXPORT_CUT
+        path = EXPORT_DIR / f"{'large' if speed == 'exact' else 'depth8'}_{speed}.pt2"
         t0 = time.perf_counter()
-        export_main(["-o", str(path), "--model", "large", "--precision", "bf16", "--batch_size",
-                     str(BATCH), "--speed", speed, "--device", "cuda"])
+        if speed == "exact":
+            export_main(["-o", str(path), "--model", "large", "--precision", "bf16",
+                         "--batch_size", str(BATCH), "--speed", speed, "--device", "cuda"])
+        else:
+            export_infer(apply_speed(base, speed), "bf16", BATCH, str(path), device="cuda")
         export_s = time.perf_counter() - t0
-        cfg = model_preset("large") if speed == "exact" else apply_speed(model_preset("large"),
-                                                                         speed)
+        cfg = base if speed == "exact" else apply_speed(base, speed)
         t0 = time.perf_counter()
         load_exported(str(path), cfg, "bf16", quantize=False, n_devices=1, device="cuda").module()
         load_s = time.perf_counter() - t0
-        served, served_first = first_batch_s(frames, speed=speed, exported_path=str(path))
-        eager, eager_first = first_batch_s(frames, speed=speed)
+        served, served_first = first_batch_s(frames, base, speed=speed, exported_path=str(path))
+        eager, eager_first = first_batch_s(frames, base, speed=speed)
         calls = served.exported_calls
         torch.cuda.synchronize()
         reset_launches()
@@ -1985,7 +2053,8 @@ def phase_export() -> dict:
         torch.cuda.synchronize()
         launches = read_launches()
         calls = served.exported_calls - calls
-        want = {name: n * forwards for name, n in PER_FORWARD[speed].items()}
+        per_forward = PER_FORWARD[speed] if speed == "exact" else EXPORT_CUT_PER_FORWARD
+        want = {name: n * forwards for name, n in per_forward.items()}
         if launches != want or calls != forwards:
             raise AssertionError(f"{tag}: launches {launches} (want {want}), {calls} of "
                                  f"{forwards} forwards through the artifact")
@@ -2012,7 +2081,8 @@ def phase_export() -> dict:
             f"{path.stat().st_size} bytes; first batch of a fresh runner (build + {BATCH} "
             f"frames): {served_first:.3f} s with the artifact, {eager_first:.3f} s without; "
             f"frames/s over {EXPORT_TIMED} frames: {fps} with, {eager_fps} without "
-            f"(large, bf16, batch {BATCH}) on {card()}")
+            f"({'large' if speed == 'exact' else 'large widths, 8 blocks'}, bf16, batch {BATCH}) "
+            f"on {card()}")
         total = {name: total[name] + launches[name] for name in KERNELS}
         del served, eager
         torch.cuda.empty_cache()
@@ -2020,7 +2090,409 @@ def phase_export() -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# training (train/*.py)
+
+
+@contextlib.contextmanager
+def instrumented_fit(steps: list, saves: list):
+    """Record each training step's seconds and kernel launches, and each
+    checkpoint save's (step, seconds), of the ``fit`` runs inside, through the loop
+    module's own names (``make_train_step``, ``save_train_state``), which
+    ``fit`` looks up when it calls them. A step's time ends in a
+    ``synchronize``, as ``fit``'s own ``float(loss)`` does."""
+    real_make, real_save = loop_module.make_train_step, loop_module.save_train_state
+
+    def make(*args, **kwargs):
+        state, step = real_make(*args, **kwargs)
+
+        def timed(state, images, depth):
+            before = read_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, images, depth)
+            torch.cuda.synchronize()
+            after = read_launches()
+            steps.append({"s": time.perf_counter() - t0,
+                          "launches": {k: after[k] - before[k] for k in after}})
+            return out
+
+        return state, timed
+
+    def save(directory, state, step, *args, **kwargs):
+        t0 = time.perf_counter()
+        real_save(directory, state, step, *args, **kwargs)
+        saves.append((step, time.perf_counter() - t0))  # a step saved again is a no-op
+
+    loop_module.make_train_step, loop_module.save_train_state = make, save
+    try:
+        yield
+    finally:
+        loop_module.make_train_step, loop_module.save_train_state = real_make, real_save
+
+
+def state_bytes(directory: Path, step: int) -> int:
+    return sum(f.stat().st_size for f in (directory / str(step)).iterdir())
+
+
+def states_equal(a, b) -> bool:
+    """Params, both moments, the update count and the data step, bit for bit."""
+    pa, pb = tree_leaves(a.params), tree_leaves(b.params)
+    pairs = list(zip(pa, pb)) + list(zip(a.opt_state.mu, b.opt_state.mu)) + list(
+        zip(a.opt_state.nu, b.opt_state.nu))
+    return (a.step == b.step and a.opt_state.count == b.opt_state.count and len(pa) == len(pb)
+            and all(torch.equal(x, y) for x, y in pairs))
+
+
+def grad_agreement(got: list, ref: list) -> tuple[float, float]:
+    """(relative L2 distance, cosine) of two flattened gradients (``None``
+    leaves are zeros), summed per leaf in float64."""
+    dd = rr = gg = gr = 0.0
+    for g, r in zip(got, ref):
+        if (g is None) != (r is None):
+            raise AssertionError("the two gradients reach different leaves")
+        if g is None:
+            continue
+        g, r = g.double(), r.double()
+        dd += float(((g - r) ** 2).sum())
+        rr += float((r * r).sum())
+        gg += float((g * g).sum())
+        gr += float((g * r).sum())
+    return math.sqrt(dd / rr), gr / math.sqrt(gg * rr)
+
+
+def plain_backward_ms() -> dict:
+    """The backward (plain math, as the JAX custom VJPs) of K1 at the patch
+    ViT's (70, 577, 3072) and of K2 at (2, 96, 96, 256), bf16, beside their
+    forwards: CUDA events over back-to-back calls."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    qkv = torch.randn((35 * BATCH, 577, 3072), generator=g, device="cuda").bfloat16()
+    qkv.requires_grad_()
+    out = attention_packed_op(qkv, 16)
+    ct = torch.randn(out.shape, generator=g, device="cuda").bfloat16()
+    k1 = {"forward_ms": median_ms(lambda: attention_packed_op(qkv.detach(), 16)),
+          "backward_ms": median_ms(lambda: torch.autograd.grad(out, qkv, ct, retain_graph=True))}
+    x = (torch.randn((BATCH, 96, 96, 256), generator=g, device="cuda") * 0.5).bfloat16()
+    w1, w2 = (torch.randn((3, 3, 256, 256), generator=g, device="cuda") * (9 * 256) ** -0.5
+              for _ in range(2))
+    b1, b2 = (torch.zeros(256, device="cuda") for _ in range(2))
+    ins = [t.requires_grad_() for t in (x, w1, b1, w2, b2)]
+    y = fused_residual_block(*ins)
+    cy = torch.randn(y.shape, generator=g, device="cuda").bfloat16()
+    k2 = {"forward_ms": median_ms(lambda: fused_residual_block(*(t.detach() for t in ins))),
+          "backward_ms": median_ms(lambda: torch.autograd.grad(y, ins, cy, retain_graph=True))}
+    log(f"[train] backward (plain math) beside the forward kernel, bf16: K1 (70, 577, 3072) "
+        f"forward {k1['forward_ms']:.3f} ms, backward {k1['backward_ms']:.3f} ms; K2 (2, 96, 96, "
+        f"256) forward {k2['forward_ms']:.3f} ms, backward {k2['backward_ms']:.3f} ms")
+    return {"K1": k1, "K2": k2}
+
+
+def split_step(state, cfg, batch) -> dict:
+    """One step of ``state`` split into forward (``loss_fn``), backward
+    (``torch.autograd.grad``) and optimizer (AdamW, the fit's settings), CUDA
+    events, after a warm-up step."""
+    opt = make_optimizer(1e-4, warmup_steps=1, total_steps=TRAIN_PAIRS // BATCH)
+    images, depth = batch
+    leaves = tree_leaves(state.params)
+    times = {}
+    for _ in range(2):  # the second is read
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = loss_fn(state.params, images, depth, cfg, Precision.bf16())
+        ev[1].record()
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+        ev[2].record()
+        opt.update(grads, state.opt_state, state.params)
+        ev[3].record()
+        torch.cuda.synchronize()
+        del grads, loss
+        times = {"forward_ms": ev[0].elapsed_time(ev[1]), "backward_ms": ev[1].elapsed_time(ev[2]),
+                 "optimizer_ms": ev[2].elapsed_time(ev[3])}
+    return times
+
+
+@contextlib.contextmanager
+def routed(plain: bool):
+    """With ``plain``, the ViT attention and the decoder residual blocks
+    routed to their plain versions (the module names the model code looks
+    up), and a check that nothing inside launched a kernel."""
+    real_attn, real_res = vit_module.attention_packed, depth_pro_module.residual_block
+    if plain:
+        vit_module.attention_packed = attention_packed_reference
+        depth_pro_module.residual_block = residual_block_reference
+    try:
+        before = read_launches()
+        yield
+        torch.cuda.synchronize()
+        if plain and read_launches() != before:
+            raise AssertionError("the plain run launched a kernel")
+    finally:
+        vit_module.attention_packed, depth_pro_module.residual_block = real_attn, real_res
+
+
+# the three runs held against each other: (precision, plain versions routed in)
+TRAIN_RUNS = {"kernels": (Precision.bf16(), False), "plain": (Precision.bf16(), True),
+              "fp32": (Precision.fp32(), True)}
+
+
+def conditioned_depth(depth: torch.Tensor, maps: list, rel: float) -> tuple:
+    """``depth`` with its ill-conditioned pixels made holes (0, which the loss
+    leaves out), and the share of pixels so left out. ``maps`` are the
+    compared runs' canonical inverse depth at the same pixels. The loss's
+    gradient at a pixel scales with 1/c: where the runs' values of c differ by
+    more than ``rel`` of the smallest, or one run has c at or below the
+    loss's clamp, rounding next to the head's ReLU 0 alone makes that
+    pixel's gradient another size in each run, and a few such pixels outweigh
+    the rest."""
+    cs = torch.stack([m.float() for m in maps])
+    low = cs.amin(0)
+    keep = (low > SILOG_EPS) & (cs.amax(0) - low <= rel * low)
+    return torch.where(keep, depth, torch.zeros_like(depth)), 1.0 - float(keep.float().mean())
+
+
+def kernels_against_plain(state, cfg, batch) -> None:
+    """One loss + backward with the kernels (bf16) against the same with the
+    plain versions routed in, beside the plain bf16 path against the plain
+    fp32 one (the bf16 envelope), on the trained params: on every pixel, and
+    on the pixels where the three runs' canonical maps agree within the
+    gradient's bound (``conditioned_depth``). The gate applies to the
+    latter; the former is printed for context."""
+    images, depth = batch
+    maps = []
+    for precision, plain in TRAIN_RUNS.values():
+        with routed(plain), torch.no_grad():
+            c, _ = forward(state.params, images, cfg, precision, compute_fov=False)
+        maps.append(c[..., 0].float())
+    conditioned, left_out = conditioned_depth(depth, maps, TRAIN_GRAD_L2)
+    del maps
+    for target, gated in ((depth, False), (conditioned, True)):
+        out = {}
+        for name, (precision, plain) in TRAIN_RUNS.items():
+            with routed(plain):
+                loss, grads = value_and_grad(state.params, images, target, cfg, precision)
+            out[name] = (float(loss), grads)
+        (loss_k, grads_k), (loss_p, grads_p), (loss_f, grads_f) = out.values()
+        l2, cos = grad_agreement(grads_k, grads_p)
+        env_l2, env_cos = grad_agreement(grads_p, grads_f)
+        del out, grads_k, grads_p, grads_f
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        pixels = (f"the {1 - left_out:.6f} of pixels where the runs' canonical maps agree within "
+                  f"{TRAIN_GRAD_L2:g} ({left_out:.6f} left out)" if gated else "every pixel")
+        log(f"[train] kernels against the plain versions, one loss + backward (large, bf16, batch "
+            f"{BATCH}, the trained params, {pixels}): loss {loss_k:.6f} / {loss_p:.6f}, relative "
+            f"difference {loss_rel:.3e} (bound {TRAIN_LOSS_BOUND:g}); gradient relative L2 "
+            f"{l2:.3e} (bound {TRAIN_GRAD_L2:g}), cosine {cos:.6f} (bound {TRAIN_GRAD_COS:g})"
+            f"{'' if gated else ', not gated'}; the plain bf16 path against plain fp32 (loss "
+            f"{loss_f:.6f}): relative L2 {env_l2:.3e}, cosine {env_cos:.6f}; the forward's bf16 "
+            f"envelope: {BF16_MAX_DEV:g} of scale")
+        if gated and not (loss_rel <= TRAIN_LOSS_BOUND and l2 <= TRAIN_GRAD_L2
+                          and cos >= TRAIN_GRAD_COS):
+            raise AssertionError(f"train: kernels against plain: loss {loss_rel:.3e}, L2 "
+                                 f"{l2:.3e}, cosine {cos:.6f}")
+
+
+def tiny_case() -> tuple:
+    """(cfg, images, depth, {device: params}) of the tiny fp32 step: random
+    params from the seed through an npz, one batch of random images and
+    depths, the params loaded onto the CPU and the card."""
+    tree = map_tree(lambda t: t.numpy(),
+                    init_depth_pro(tiny_config(), torch.Generator().manual_seed(SEED), "cpu"))
+    TRAIN_DIR.mkdir(parents=True, exist_ok=True)
+    npz = TRAIN_DIR / "tiny.npz"
+    save_params(str(npz), tree)
+    cfg = dataclasses.replace(tiny_config(), checkpoint_uri=str(npz))
+    rng = np.random.default_rng(SEED + 13)
+    images = torch.from_numpy(
+        rng.uniform(-1, 1, (BATCH, cfg.img_size, cfg.img_size, 3)).astype(np.float32))
+    depth = torch.from_numpy(
+        rng.uniform(1, 10, (BATCH, cfg.img_size, cfg.img_size)).astype(np.float32))
+    return cfg, images, depth, {dev: load_checkpoint(cfg, dev) for dev in ("cpu", "cuda")}
+
+
+def tiny_maps(cfg, images, params: dict) -> list:
+    """The canonical inverse depth of the tiny fp32 forward on each device."""
+    maps = []
+    for dev, p in params.items():
+        with torch.no_grad():
+            c, _ = forward(p, images.to(dev), cfg, Precision.fp32(), compute_fov=False)
+        maps.append(c[..., 0].cpu())
+    return maps
+
+
+def tiny_steps(cfg, images, depth, params: dict) -> dict:
+    """{device: (loss, gradients on the CPU, the step's loss, launches)} of
+    one fp32 ``value_and_grad`` and one ``train_step`` on each device."""
+    out = {}
+    for dev, p in params.items():
+        state, step = make_train_step(p, cfg, dev, precision=Precision.fp32())
+        x, d = images.to(dev), depth.to(dev)
+        reset_launches()
+        loss, grads = value_and_grad(state.params, x, d, cfg, Precision.fp32())
+        launches = read_launches()
+        state, step_loss = step(state, x, d)
+        out[dev] = (float(loss), [None if g is None else g.cpu() for g in grads],
+                    float(step_loss), launches)
+    return out
+
+
+def tiny_card_against_cpu() -> None:
+    """One fp32 ``train_step`` of ``tiny_config()`` on the same npz and batch,
+    the card (K1 at hd 32) against the CPU: loss and every gradient leaf, on
+    the pixels where the two devices' canonical maps agree within
+    ``TINY_CONDITIONING`` (``conditioned_depth``)."""
+    cfg, images, depth, params = tiny_case()
+    depth, left_out = conditioned_depth(depth, tiny_maps(cfg, images, params), TINY_CONDITIONING)
+    out = tiny_steps(cfg, images, depth, params)
+    (lc, gc, sc, _), (lg, gg, sg, launches) = out["cpu"], out["cuda"]
+    if launches["K1"] != 2 * 2 * tiny_config().vit.depth:
+        raise AssertionError(f"train tiny: the card's step launched {launches}")
+    torch.testing.assert_close(lg, lc, rtol=TINY_LOSS_RTOL, atol=0)
+    torch.testing.assert_close(sg, sc, rtol=TINY_LOSS_RTOL, atol=0)
+    worst = 0.0
+    for a, b in zip(gg, gc):
+        if (a is None) != (b is None):
+            raise AssertionError("train tiny: the devices' gradients reach different leaves")
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=TINY_GRAD_RTOL, atol=TINY_GRAD_ATOL)
+            worst = max(worst, float((a - b).abs().max()))
+    log(f"[train] tiny fp32 step, card (launches {launches}) against the CPU, raw params, "
+        f"{left_out:.6f} of pixels left out as ill-conditioned (conditioning "
+        f"{TINY_CONDITIONING:g}): loss {lg:.7f} / {lc:.7f} (rtol {TINY_LOSS_RTOL:g}), every "
+        f"gradient leaf within rtol {TINY_GRAD_RTOL:g} / atol {TINY_GRAD_ATOL:g} (max |diff| "
+        f"{worst:.3e}); the step's losses {sg:.7f} / {sc:.7f}")
+
+
+def phase_train() -> dict:
+    """``fit`` at the large preset (bf16, 1536^2, batch 2) on 8 written pairs:
+    4 steps with checkpoints every 2, a restore checked bit for bit, a resumed
+    ``fit`` that continues to step 8; then the step split, the kernels against
+    the plain versions, and the tiny fp32 step on the card against the CPU."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    data, ckpt, metrics = TRAIN_DIR / "data", TRAIN_DIR / "ckpt", TRAIN_DIR / "metrics.jsonl"
+    t0 = time.perf_counter()
+    write_dataset(str(data), TRAIN_PAIRS, seed=SEED, size=512)
+    log(f"[train] {TRAIN_PAIRS} pairs of 512^2 written by write_dataset in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = model_preset("large")
+    kwargs = dict(cfg=cfg, batch_size=BATCH, lr=1e-4, warmup_steps=1, checkpoint_dir=str(ckpt),
+                  save_every=2, log_every=1, metrics_file=str(metrics), seed=SEED, device="cuda")
+    steps, saves = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with instrumented_fit(steps, saves):
+        state = loop_module.fit(str(data), epochs=1, **kwargs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(steps)
+    want = {k: v * n for k, v in PER_TRAIN_STEP.items()}
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    losses = [r["loss"] for r in rows if "loss" in r]
+    log(f"[train] fit: large, bf16, 1536^2, batch {BATCH}, {n} steps: launches {launches} (want "
+        f"{want}: {PER_TRAIN_STEP} per step), per step {[st['launches'] for st in steps]}; "
+        f"losses {losses}; s per step {[round(st['s'], 4) for st in steps]}; saves "
+        f"{[(st, round(x, 3)) for st, x in saves]} (step, s); peak memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB) on {card()}")
+    if n != TRAIN_PAIRS // BATCH or state.step != n or launches != want or any(
+            st["launches"] != PER_TRAIN_STEP for st in steps):
+        raise AssertionError(f"train: {n} steps to step {state.step}, launches {launches}")
+    if len(losses) != n or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train: metrics losses {losses}")
+    after_first = statistics.mean(st["s"] for st in steps[1:])
+    log(f"[train] {after_first:.4f} s/step after the first step ({BATCH / after_first:.3f} "
+        f"samples/s; first step {steps[0]['s']:.3f} s)")
+
+    # the checkpoint: its bytes, a restore onto the card equal to the state bit for bit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = restore_train_state(str(ckpt), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    same = restored is not None and states_equal(TrainState.from_dict(restored), state)
+    save_s = next(x for st, x in saves if st == n)
+    log(f"[train] checkpoint of step {n}: {state_bytes(ckpt, n)} bytes, saved in "
+        f"{save_s:.3f} s, restored in {load_s:.3f} s, equal to the trained state bit for bit: "
+        f"{same}")
+    if not same:
+        raise AssertionError("train: the restored state differs from the saved one")
+    del restored, state
+    shutil.rmtree(ckpt / "2")  # the root filesystem holds ~79 GB; each state is ~11.4 GB
+
+    # the resumed fit continues from step 4 to step 8 (2 epochs)
+    steps2, saves2 = [], []
+    reset_launches()
+    with instrumented_fit(steps2, saves2):
+        resumed = loop_module.fit(str(data), epochs=2, **kwargs)
+    torch.cuda.synchronize()
+    launches2 = read_launches()
+    log(f"[train] resumed fit: continued to step {resumed.step} in {len(steps2)} steps, "
+        f"launches {launches2}, s per step {[round(st['s'], 4) for st in steps2]}")
+    if resumed.step != 2 * n or len(steps2) != n:
+        raise AssertionError(f"train: the resumed fit ended at step {resumed.step}")
+    shutil.rmtree(ckpt)
+    total = {k: launches[k] + launches2[k] for k in launches}
+    torch.cuda.empty_cache()
+
+    batch = next(DepthDataset(str(data), cfg.img_size, seed=SEED).batches(BATCH, device="cuda"))
+    split = split_step(resumed, cfg, batch)
+    log(f"[train] one step split (CUDA events, large, bf16, batch {BATCH}): forward "
+        f"{split['forward_ms']:.3f} ms, backward {split['backward_ms']:.3f} ms, optimizer "
+        f"{split['optimizer_ms']:.3f} ms")
+    kernels_against_plain(resumed, cfg, batch)
+    del resumed, batch
+    torch.cuda.empty_cache()
+    tiny_card_against_cpu()
+    return total
+
+
+def phase_distill() -> dict:
+    """``distill`` with a large teacher runner over 4 frames of 512^2, then
+    the small student's ``fit`` for 2 steps."""
+    from PIL import Image
+
+    frames, labels = TRAIN_DIR / "frames", TRAIN_DIR / "labels"
+    frames.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 14)
+    for i in range(DISTILL_FRAMES):
+        Image.fromarray(FAMILIES["boxes"](rng, 512)[0]).save(frames / f"frame_{i:04d}.png")
+    teacher = DepthVideoRunner(cfg=model_preset("large"), precision="bf16", batch_size=BATCH,
+                               rng_seed=SEED, decode_pool="thread", device="cuda")
+    steps, saves = [], []
+    reset_launches()
+    with instrumented_fit(steps, saves):
+        state = distill_module.distill(str(frames), str(labels), student="small",
+                                       teacher_runner=teacher, batch_size=BATCH, epochs=1,
+                                       lr=1e-4, warmup_steps=0, log_every=1, seed=SEED,
+                                       device="cuda")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    written = sorted(p.name for p in labels.glob("*_depth.npz"))
+    teacher_forwards = math.ceil(DISTILL_FRAMES / BATCH)
+    want = {k: PER_FORWARD["exact"][k] * teacher_forwards + PER_STUDENT_STEP[k] * len(steps)
+            for k in launches}
+    log(f"[distill] {len(written)} labels written by the large teacher ({teacher_forwards} "
+        f"forwards), the small student (ViT-S, 6 heads x 64) trained {len(steps)} steps: "
+        f"launches {launches} (want {want}), per student step {[st['launches'] for st in steps]}, "
+        f"s per step {[round(st['s'], 4) for st in steps]} on {card()}")
+    with np.load(labels / written[0]) as f:
+        # random weights: the teacher's FOV head gives a finite f_px of either sign
+        ok = f["depth"].shape == (512, 512) and np.isfinite(f["depth"]).all() and \
+            math.isfinite(float(f["focallength_px"]))
+    if (len(written) != DISTILL_FRAMES or not ok or len(steps) != DISTILL_FRAMES // BATCH
+            or launches != want or any(st["launches"] != PER_STUDENT_STEP for st in steps)):
+        raise AssertionError(f"distill: {len(written)} labels, {len(steps)} steps, launches "
+                             f"{launches}")
+    if not all(torch.isfinite(t).all() for t in tree_leaves(state.params)):
+        raise AssertionError("distill: non-finite student params")
+    del teacher, state
+    shutil.rmtree(TRAIN_DIR)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     device = phase_device()
     phase_build()
     report = phase_kernels()
@@ -2045,13 +2517,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["maps_cli"] = phase_maps_cli()  # its decode pool's processes come and go
     paths["export"] = phase_export()
+    gc.collect()  # the earlier phases' runners: training needs tens of GB of its own
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    backward = plain_backward_ms()
+    paths["train"] = phase_train()
+    t1 = time.perf_counter()
+    paths["distill"] = phase_distill()
+    log(f"[train] the train phase took {t1 - t0:.1f} s, the distill phase "
+        f"{time.perf_counter() - t1:.1f} s")
     kernels = []
     for key, k in KERNELS.items():
         by_path = {name: counts[key] for name, counts in paths.items()}
+        extra = {"backward": backward[key]} if key in backward else {}
         kernels.append({"name": k.name, "route": "cuda", "source": k.source,
                         "replaces": k.replaces, "launches": sum(by_path.values()),
-                        "launches_by_path": by_path, **report[key]})
-    log(f"[done] {card()}")
+                        "launches_by_path": by_path, **report[key], **extra})
+    log(f"[done] {card()}; chip_smoke.py took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -170,8 +170,9 @@ def _apply_upsample_block(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def encoder_apply(params: dict, x: torch.Tensor, cfg: DepthProConfig,
-                  precision: Precision) -> list[torch.Tensor]:
-    """Multi-resolution encoding. x: (B, 4p, 4p, 3)."""
+                  precision: Precision, remat: bool = False) -> list[torch.Tensor]:
+    """Multi-resolution encoding. x: (B, 4p, 4p, 3). ``remat`` recomputes
+    each block of the patch and image ViTs in the backward pass."""
     vit_cfg = cfg.vit
     b = x.shape[0]
     p = vit_cfg.img_size
@@ -189,7 +190,7 @@ def encoder_apply(params: dict, x: torch.Tensor, cfg: DepthProConfig,
     tokens, (h0, h1) = vit_apply(params["patch_vit"], pyramid, vit_cfg, precision,
                                  capture_blocks=cfg.hook_block_ids,
                                  merge_ratio=cfg.token_merge_ratio,
-                                 merge_block=cfg.token_merge_block)
+                                 merge_block=cfg.token_merge_block, remat=remat)
     n0, n1 = 25 * b, 9 * b
     latent0 = merge_patches(tokens_to_grid(h0[:n0], g), b, pad0)
     latent1 = merge_patches(tokens_to_grid(h1[:n0], g), b, pad0)
@@ -198,7 +199,7 @@ def encoder_apply(params: dict, x: torch.Tensor, cfg: DepthProConfig,
     x1_feat = merge_patches(feat[n0:n0 + n1], b, pad1)
     x2_feat = feat[n0 + n1:]
 
-    image_tokens, _ = vit_apply(params["image_vit"], x2, vit_cfg, precision)
+    image_tokens, _ = vit_apply(params["image_vit"], x2, vit_cfg, precision, remat=remat)
     global_feat = tokens_to_grid(image_tokens, g)
 
     latent0 = _apply_upsample_block(params["upsample_latent0"], latent0)
@@ -307,13 +308,16 @@ def fov_apply(params: dict, x: torch.Tensor, lowres: torch.Tensor, cfg: DepthPro
 
 
 def forward(params: dict, x: torch.Tensor, cfg: DepthProConfig,
-            precision: Precision = Precision.fp32(), compute_fov: bool = True):
+            precision: Precision = Precision.fp32(), compute_fov: bool = True,
+            remat: bool = False):
     """(B, img, img, 3) -> (canonical inverse depth (B, img, img, 1),
-    fov_deg (B,) or None). ``compute_fov=False`` skips the third ViT."""
+    fov_deg (B,) or None). ``compute_fov=False`` skips the third ViT;
+    ``remat=True`` recomputes the encoder ViTs' blocks in the backward pass
+    (training; the values are those of ``remat=False``)."""
     if x.shape[1] != cfg.img_size or x.shape[2] != cfg.img_size:
         raise ValueError(f"forward expects {cfg.img_size}x{cfg.img_size} input, got "
                          f"{tuple(x.shape)}; use infer_fn() for arbitrary sizes")
-    encodings = encoder_apply(params["encoder"], x, cfg, precision)
+    encodings = encoder_apply(params["encoder"], x, cfg, precision, remat)
     features, lowres = decoder_apply(params["decoder"], encodings)
     canonical = head_apply(params["head"], features, precision)
     fov_deg = None

@@ -3,7 +3,10 @@
 Patch embed 16x16/s16 as patchify + matmul, cls token, learned pos embed,
 pre-norm blocks with LayerScale and exact GELU, eps=1e-6 LayerNorms, and a
 final LayerNorm. Block params are stacked along a leading depth axis; a
-Python loop over that axis replaces the JAX package's ``lax.scan``.
+Python loop over that axis replaces the JAX package's ``lax.scan``, and
+``remat=True`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, the twin of the JAX package's per-block
+``jax.checkpoint``).
 Attention runs on the packed head-contiguous qkv through
 ``ops.attention.attention_packed``: kernel K1 on CUDA, or K3 on the blocks
 after a ToMe token merge, which carry the merged tokens' log sizes as a
@@ -20,6 +23,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ckpt.params import ParamTree
 from ..ckpt.quantize import materialize_weight
@@ -76,9 +80,16 @@ def _dense(x: torch.Tensor, w, b: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
-def _layer(v, i: int):
-    """Layer ``i`` of a stacked block param: a tensor or a ``{'q', 's'}`` dict."""
-    return {k: t[i] for k, t in v.items()} if isinstance(v, dict) else v[i]
+def _unstack(blocks: dict, depth: int) -> list[dict]:
+    """Per-block views of the stacked block params (a leaf may be a
+    ``{'q', 's'}`` dict). One ``unbind`` per leaf: under autograd its
+    backward stacks the blocks' gradients once, as the JAX scan's cotangent
+    does, where slicing block ``i`` out of the stack would fill and add a
+    zero tensor of the whole stack for every block."""
+    cols = {k: ({kk: t.unbind(0) for kk, t in v.items()} if isinstance(v, dict)
+                else v.unbind(0)) for k, v in blocks.items()}
+    return [{k: ({kk: c[kk][i] for kk in c} if isinstance(c, dict) else c[i])
+             for k, c in cols.items()} for i in range(depth)]
 
 
 def _block(x: torch.Tensor, bp: dict, cfg: ViTConfig,
@@ -93,13 +104,20 @@ def _block(x: torch.Tensor, bp: dict, cfg: ViTConfig,
     return torch.addcmul(x, bp["ls2"].to(cdt), _dense(h, bp["fc2_w"], bp["fc2_b"]))
 
 
-def _run_blocks(x: torch.Tensor, blocks: dict, lo: int, hi: int, cfg: ViTConfig,
-                key_bias: torch.Tensor | None = None) -> torch.Tensor:
-    """Blocks [lo, hi) of the stacked params; ``key_bias`` (B, S) is the
-    per-key score bias of every block in the segment (ToMe proportional
-    attention)."""
+def _run_blocks(x: torch.Tensor, layers: list, lo: int, hi: int, cfg: ViTConfig,
+                key_bias: torch.Tensor | None = None, remat: bool = False) -> torch.Tensor:
+    """Blocks [lo, hi) of ``layers`` (``_unstack``'s per-block params);
+    ``key_bias`` (B, S) is the per-key score bias of every block in the
+    segment (ToMe proportional attention). ``remat`` keeps only each
+    block's input for the backward pass and runs the block again there
+    (its kernels included); a block draws no random numbers, so no RNG
+    state is saved."""
     for i in range(lo, hi):
-        x = _block(x, {k: _layer(v, i) for k, v in blocks.items()}, cfg, key_bias)
+        if remat:
+            x = checkpoint(_block, x, layers[i], cfg, key_bias, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _block(x, layers[i], cfg, key_bias)
     return x
 
 
@@ -176,7 +194,8 @@ def vit_apply(params: dict, x: torch.Tensor, cfg: ViTConfig,
               precision: Precision = Precision.fp32(),
               capture_blocks: Sequence[int] = (),
               merge_ratio: float = 0.0,
-              merge_block: int = 2) -> tuple[torch.Tensor, list[torch.Tensor]]:
+              merge_block: int = 2,
+              remat: bool = False) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """x: (B, img, img, 3) normalized NHWC. Returns (final tokens after the
     last LayerNorm, [outputs of the blocks in ``capture_blocks``, in sorted
     order]), each (B, 1+G*G, D).
@@ -186,7 +205,8 @@ def vit_apply(params: dict, x: torch.Tensor, cfg: ViTConfig,
     the remaining blocks run on the shorter sequence with the log token
     sizes as key bias; captures and the final tokens are unmerged back to
     full length. A ratio too small to merge one token changes nothing, and
-    a merge point at or after the last block is skipped."""
+    a merge point at or after the last block is skipped. ``remat=True``
+    recomputes each block in the backward pass (training at 1536 px)."""
     cdt = precision.compute_dtype
     b = x.shape[0]
     tokens = _dense(patchify(x.to(cdt), cfg.patch_size), params["patch_embed"]["w"],
@@ -194,7 +214,7 @@ def vit_apply(params: dict, x: torch.Tensor, cfg: ViTConfig,
     cls = params["cls_token"].to(cdt).expand(b, 1, cfg.embed_dim)
     tokens = torch.cat([cls, tokens], dim=1) + params["pos_embed"].to(cdt)
 
-    blocks = params["blocks"]
+    blocks = _unstack(params["blocks"], cfg.depth)
     captures = []
     gmap = key_bias = None
     lo = 0
@@ -207,19 +227,19 @@ def vit_apply(params: dict, x: torch.Tensor, cfg: ViTConfig,
     merge_pending = mb is not None and mb < cfg.depth
     for idx in sorted(capture_blocks):
         if merge_pending and mb <= idx:
-            tokens = _run_blocks(tokens, blocks, lo, mb, cfg)
+            tokens = _run_blocks(tokens, blocks, lo, mb, cfg, remat=remat)
             lo = mb
             tokens, gmap, key_bias = merge_now(tokens)
             merge_pending = False
-        tokens = _run_blocks(tokens, blocks, lo, idx + 1, cfg, key_bias)
+        tokens = _run_blocks(tokens, blocks, lo, idx + 1, cfg, key_bias, remat)
         captures.append(unmerge_tokens(tokens, gmap) if gmap is not None else tokens)
         lo = idx + 1
     if merge_pending and max(mb, lo) < cfg.depth:
         mb = max(mb, lo)
-        tokens = _run_blocks(tokens, blocks, lo, mb, cfg)
+        tokens = _run_blocks(tokens, blocks, lo, mb, cfg, remat=remat)
         lo = mb
         tokens, gmap, key_bias = merge_now(tokens)
-    tokens = _run_blocks(tokens, blocks, lo, cfg.depth, cfg, key_bias)
+    tokens = _run_blocks(tokens, blocks, lo, cfg.depth, cfg, key_bias, remat)
 
     tokens = layer_norm(tokens, params["norm"]["g"], params["norm"]["b"], cfg.layer_norm_eps)
     if gmap is not None:

@@ -9,7 +9,9 @@ filters' keep masks, the floor-plan checks run with the CPU on both sides at
 a small size, and the launches the device pipeline and the effect expect.
 And the ``serve`` and ``quantize`` phases' arithmetic: the bytes the int8
 ViTs save, the launches per forward from ``/metrics``' batch count, the
-latency percentiles and the count of processes started.
+latency percentiles and the count of processes started. And the ``train``
+and ``export`` phases' launches per step and per forward, counted on meta
+tensors, and the gradient and state comparisons.
 """
 
 import numpy as np
@@ -292,3 +294,101 @@ def test_count_process_starts_counts_spawned_processes_only(monkeypatch):
     pid = tracker._pid
     monkeypatch.setattr(tracker, "_pid", None)
     assert chip_smoke.count_process_starts(lambda: setattr(tracker, "_pid", pid)) == (None, 1)
+
+
+def _launches_per_forward(cfg, batch=2):
+    """K1 / K3 / K2 calls of one bf16 forward without the FOV head, counted on
+    meta tensors (shapes only) through the names the model code looks up."""
+    from ml_depth_pro_video_tpu_torch.ckpt.params import init_depth_pro
+    from ml_depth_pro_video_tpu_torch.models import depth_pro as dp
+    from ml_depth_pro_video_tpu_torch.models import vit as vit_module
+    from ml_depth_pro_video_tpu_torch.ops import resblock
+    from ml_depth_pro_video_tpu_torch.core.precision import Precision
+
+    counts = {"K1": 0, "K2": 0, "K3": 0}
+    real_attn, real_fused = vit_module.attention_packed, resblock.fused_residual_block
+
+    def attn(qkv, heads, key_bias=None):
+        counts["K1" if key_bias is None else "K3"] += 1
+        return real_attn(qkv, heads, key_bias)
+
+    def fused(x, *args):
+        counts["K2"] += 1
+        return x
+
+    vit_module.attention_packed, resblock.fused_residual_block = attn, fused
+    try:
+        params = init_depth_pro(cfg, torch.Generator().manual_seed(0), "meta")
+        x = torch.empty((batch, cfg.img_size, cfg.img_size, 3), device="meta")
+        dp.forward(params, x, cfg, Precision.bf16(), compute_fov=False)
+    finally:
+        vit_module.attention_packed, resblock.fused_residual_block = real_attn, real_fused
+    return counts
+
+
+@pytest.mark.parametrize("name,per_step", [("large", "PER_TRAIN_STEP"),
+                                           ("small", "PER_STUDENT_STEP")])
+def test_train_phase_launches_per_step(name, per_step):
+    """A training step runs the forward without the FOV head once and its ViT
+    blocks again in the per-block recompute: twice the forward's K1, its K2
+    once (the decoder's residual blocks are not recomputed)."""
+    from ml_depth_pro_video_tpu_torch.models.depth_pro import model_preset
+
+    fwd = _launches_per_forward(model_preset(name))
+    want = getattr(chip_smoke, per_step)
+    assert want == {"K1": 2 * fwd["K1"], "K2": fwd["K2"], "K3": 0, "K4": 0}
+    assert want["K1"] == 2 * 2 * model_preset(name).vit.depth and want["K2"] == 3
+
+
+def test_export_cut_launches_per_forward():
+    """The balanced artifact at 8 blocks: 2 exact patch-ViT blocks, the merge,
+    6 with the size bias; 8 K1 each for the image and FOV ViTs."""
+    from ml_depth_pro_video_tpu_torch.models.depth_pro import apply_speed
+
+    cfg = apply_speed(chip_smoke.EXPORT_CUT, "balanced")
+    assert cfg.vit.depth == 8 and cfg.vit.embed_dim == 1024 and cfg.img_size == 1536
+    fwd = _launches_per_forward(cfg)
+    fov = cfg.vit.depth  # the exported program derives f_px: the FOV ViT runs
+    assert chip_smoke.EXPORT_CUT_PER_FORWARD == {"K1": fwd["K1"] + fov, "K2": fwd["K2"],
+                                                 "K3": fwd["K3"], "K4": 0}
+
+
+def test_grad_agreement_of_flattened_gradients():
+    a = [torch.tensor([1.0, 0.0]), None, torch.tensor([[0.0]])]
+    l2, cos = chip_smoke.grad_agreement(a, a)
+    assert l2 == 0.0 and cos == pytest.approx(1.0)
+    b = [torch.tensor([0.0, 1.0]), None, torch.tensor([[0.0]])]
+    l2, cos = chip_smoke.grad_agreement(a, b)
+    assert l2 == pytest.approx(2 ** 0.5) and cos == pytest.approx(0.0)
+    with pytest.raises(AssertionError, match="different leaves"):
+        chip_smoke.grad_agreement(a, [torch.zeros(2), torch.zeros(1), torch.zeros((1, 1))])
+
+
+def test_conditioned_depth_leaves_out_the_ill_conditioned_pixels():
+    depth = torch.tensor([[2.0, 3.0, 4.0, 5.0, 6.0]])
+    a = torch.tensor([[0.5, 1e-3, 0.0, 1.0, 1e-6]])
+    b = torch.tensor([[0.5004, 1.2e-3, 1e-3, 1.0, 1e-6]])
+    # kept: within 1e-3 of the smaller value, above the clamp; left out: 20% apart, one run
+    # at the ReLU's 0, one at the clamp
+    got, left_out = chip_smoke.conditioned_depth(depth, [a, b], 1e-3)
+    assert torch.equal(got, torch.tensor([[2.0, 0.0, 0.0, 5.0, 0.0]]))
+    assert left_out == pytest.approx(0.6)
+    got, left_out = chip_smoke.conditioned_depth(depth, [a, b, a], 0.25)
+    assert torch.equal(got, torch.tensor([[2.0, 3.0, 0.0, 5.0, 0.0]]))
+    assert left_out == pytest.approx(0.4)
+
+
+def test_states_equal_compares_every_part():
+    from ml_depth_pro_video_tpu_torch.train.step import TrainState, make_optimizer
+
+    def state(step=3, bump=0.0):
+        params = {"w": torch.ones(3) + bump}
+        opt = make_optimizer(1e-3)
+        return TrainState(params, opt.init(params), step)
+
+    assert chip_smoke.states_equal(state(), state())
+    assert not chip_smoke.states_equal(state(), state(bump=1e-7))
+    assert not chip_smoke.states_equal(state(), state(step=4))
+    s = state()
+    s.opt_state.nu[0][0] = 1e-30
+    assert not chip_smoke.states_equal(s, state())

@@ -1,7 +1,8 @@
-"""The PyTorch port never imports jax or the JAX package: every module of the
+"""The PyTorch port never imports jax or the JAX package, nor the JAX
+package's training libraries (``optax``, ``orbax``): every module of the
 package and everything ``chip_smoke.py`` imports load in a fresh interpreter
-with neither ``jax`` nor ``ml_depth_pro_video_tpu`` in ``sys.modules``
-afterwards, and no source line imports either."""
+with none of them in ``sys.modules`` afterwards, and no source line imports
+one."""
 
 import pkgutil
 import subprocess
@@ -11,7 +12,7 @@ from pathlib import Path
 import ml_depth_pro_video_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "ml_depth_pro_video_tpu")  # as a top-level package name
+FORBIDDEN = ("jax", "ml_depth_pro_video_tpu", "optax", "orbax")  # as a top-level package name
 
 
 def _port_modules():
@@ -37,7 +38,8 @@ def test_port_covers_the_slice_modules():
                  "native", "geom.pointcloud", "geom.unproject", "geom.ground", "geom.clean",
                  "geom.shapes", "geom.floorplan_viz", "geom.render", "geom.device_floorplan",
                  "effects.parallax", "ckpt.quantize", "serve.server", "ckpt.export",
-                 "utils.compile_cache"):
+                 "utils.compile_cache", "train.step", "train.data", "train.loop",
+                 "train.distill", "ckpt.checkpointing", "utils.synthetic", "utils.profiling"):
         assert f"ml_depth_pro_video_tpu_torch.{name}" in mods
 
 
@@ -76,6 +78,7 @@ def test_imported_modules_parser():
     assert not any(map(_forbidden, _imported_modules("from ..io.image import load_rgb")))
     assert not _forbidden("ml_depth_pro_video_tpu_torch.ops")
     assert _forbidden("ml_depth_pro_video_tpu.ops") and _forbidden("jax")
+    assert _forbidden("optax") and _forbidden("orbax.checkpoint")
 
 
 def test_no_jax_import_in_port_sources():
