@@ -21,10 +21,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    and its operations over the card's peak for their type); the attention
    kernels' entries carry the fp32 (parity mode) reading at the same shape
    under ``fp32``, K1's the bf16 one at the image ViT's (2, 577, 3072)
-   under ``small_shape``, and K2's (2, 96, 96, 256) entry its (2, 48, 48,
-   256) reading there; K2 is also timed beside the plain composition at the
-   192^2 and 384^2 levels that the width gate keeps on the plain path, each
-   K2 line names the tiling the kernel took, and K2's entries carry the
+   under ``small_shape`` and at the latency path's patch slice (18, 577,
+   3072) under ``latency_shape`` (K3's at (18, 289, 3072) too), and K2's (2,
+   96, 96, 256) entry its (2, 48, 48, 256) reading there and the latency
+   path's bands plus halo, (1, 26, 48, 256) and (1, 50, 96, 256), under
+   ``latency_shape_26x48`` and ``latency_shape_50x96``; K2 is also timed
+   beside the plain composition at the 192^2 and 384^2 levels that the
+   width gate keeps on the plain path, each K2 line names the tiling the kernel took, and K2's entries carry the
    profiler's device time of K2 and of the plain composition (whose many
    launches leave the card waiting on the host) under ``device_ms`` and
    ``plain_device_ms``; times are medians over runs of back-to-back calls;
@@ -150,6 +153,37 @@ Phases (each prints its own lines; any failure exits non-zero):
    the artifact's bytes, the first-batch latency of a fresh runner (its build
    and its first batch of 2) with the artifact and without it, and frames/s of
    both over the same 32-frame window.
+8b. parallel: two ranks on the one card, one gloo group (``parallel/``; NCCL
+   refuses two ranks on one device), started as ``chip_smoke.py
+   --parallel-rank r port dir`` while this process exports a ``--dp 2``
+   artifact at ``EXPORT_CUT`` (exact, batch 2); each rank shares one param
+   tree (random, seed 0) among its runners and runs in turn: (a)
+   ``depth-pro-maps-torch --coordinator ... --num_processes 2`` over the
+   pipeline phase's 8 frames of 1080x1920 (large, bf16, exact, batch 2: one
+   frame per rank), the npz maps equal bit for bit to the unsharded runner's
+   at batch 1; (b) the runner in latency mode at batch 1, exact and fast: the
+   attention shapes per rank ((18, 577, 3072) for the 35 patches padded to
+   36, (1, 577, 3072) for the image and FOV ViTs; K3 at (18, 289, 3072) at
+   fast) and K2 on the bands plus halo, the depth against the unsharded
+   runner within ``LATENCY_ENVELOPE``, where its max lies and how its top 1%
+   crowd the rows where the bands meet; one 1536^2 frame's canonical inverse
+   depth through ``forward`` (unclamped) against the unsharded forward, beside
+   the control: the same with the halo zeroed at one decoder level, each
+   level in turn; the sound map must not read as a halo error
+   (``HALO_FAULT``) and every control must; ms per frame beside the unsharded
+   runner's; the gathers and the point-to-point halo exchanges per forward
+   and their synchronised ms; (c) ``depth-pro-video-torch`` over 2 ranks: one
+   ``ground.json``, per-rank progress files covering every frame once, the
+   plans decodable; (d) ``create_server(parallel="dp")``: rank 0 answers 4
+   requests, rank 1 follows its batches; the answers equal the unsharded
+   runner's at the per-rank batch bit for bit (within ``SERVE_REF_BOUND``);
+   (e) the artifact served by a 2-rank dp runner, equal to the eager dp runner
+   bit for bit. Launches per rank per forward: 72 K1 / 3 K2 (dp, latency
+   exact), 50 K1 / 22 K3 / 3 K2 (latency fast), 24 K1 / 3 K2 (the artifact);
+   printed beside the card's name and power limit: dp frames/s at batch 4,
+   each rank's peak memory.
+   Both ranks share the card's SMs: the numbers are the parallel machinery's
+   overhead, not a speedup;
 9. train: the plain backward of K1 at (70, 577, 3072) and of K2 at (2, 96,
    96, 256) timed beside their forwards; then ``fit`` (``train/loop.py``) at
    the ``large`` preset, bf16, 1536^2, batch 2, random weights from seed 0, on
@@ -274,6 +308,7 @@ from ml_depth_pro_video_tpu_torch.train.step import (
     value_and_grad,
 )
 from ml_depth_pro_video_tpu_torch.ops.resize import resize2d
+from ml_depth_pro_video_tpu_torch.parallel.latency import patch_split
 from ml_depth_pro_video_tpu_torch.serve.server import (
     canonicalize,
     create_server,
@@ -296,18 +331,21 @@ BATCH = 2  # the slice's batch size: K1 sees (35*BATCH, 577, 3072) and (BATCH, 5
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
 # slice shapes at batch 1 and at BATCH, then ragged ones; (2, 65, 192) with 2 heads is hd=32
 K1_SHAPES = [((35 * BATCH, 577, 3072), 16), ((BATCH, 577, 3072), 16), ((35, 577, 3072), 16),
-             ((1, 577, 3072), 16), ((3, 33, 192), 4), ((2, 65, 384), 2), ((2, 65, 192), 2)]
+             ((1, 577, 3072), 16), ((18, 577, 3072), 16), ((3, 33, 192), 4), ((2, 65, 384), 2),
+             ((2, 65, 192), 2)]
 # the speed tiers' patch-ViT shapes (balanced keeps 433 of 577 tokens, fast 289) at BATCH
-# and at batch 1, then ragged ones
+# and at batch 1, the latency path's slice at fast over 2 ranks, then ragged ones
 K3_SHAPES = [((35 * BATCH, 433, 3072), 16), ((35 * BATCH, 289, 3072), 16),
-             ((35, 433, 3072), 16), ((35, 289, 3072), 16), ((3, 33, 192), 4), ((2, 65, 192), 2)]
+             ((35, 433, 3072), 16), ((35, 289, 3072), 16), ((18, 289, 3072), 16),
+             ((3, 33, 192), 4), ((2, 65, 192), 2)]
 # a ViT-L block's attention in (B, H, S, D) at batch 2 and 1, then ragged ones
 K4_SHAPES = [(35 * BATCH, 16, 577, 64), (35, 16, 577, 64), (3, 4, 33, 32), (2, 2, 65, 16)]
 ATTN_BOUNDS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # share of scale, TF32 off
-# the decoder's K2 levels at BATCH and batch 1, then ragged ones, then the levels the width gate
-# keeps on the plain composition (timed beside it)
-K2_SHAPES = [(BATCH, 48, 48, 256), (BATCH, 96, 96, 256), (1, 48, 48, 256), (1, 20, 24, 64),
-             (BATCH, 9, 7, 24), (BATCH, 192, 192, 256), (BATCH, 384, 384, 256)]
+# the decoder's K2 levels at BATCH and batch 1, the latency path's bands plus halo over 2 ranks,
+# then ragged ones, then the levels the width gate keeps on the plain composition (timed beside it)
+K2_SHAPES = [(BATCH, 48, 48, 256), (BATCH, 96, 96, 256), (1, 48, 48, 256), (1, 26, 48, 256),
+             (1, 50, 96, 256), (1, 20, 24, 64), (BATCH, 9, 7, 24), (BATCH, 192, 192, 256),
+             (BATCH, 384, 384, 256)]
 TIMED_FRAMES = 96  # the fps window: ~6 s at the large preset, after a warm-up stream
 K2_BOUND = 2e-2  # bf16 tap-accumulation band of the JAX package's own test
 PER_FORWARD = {  # kernel launches per forward of the large preset
@@ -384,6 +422,8 @@ EXPORT_CUT = dataclasses.replace(model_preset("large"),
 # per forward of EXPORT_CUT at balanced: patch ViT blocks 0-1 exact, the merge, blocks 2-7 with
 # the size bias; image and FOV ViTs 8 blocks each
 EXPORT_CUT_PER_FORWARD = {"K1": 18, "K2": 3, "K3": 6, "K4": 0}
+# ... and at exact (the parallel phase's --dp 2 artifact): 8 blocks x 3 ViTs
+PARALLEL_EXPORT_PER_FORWARD = {"K1": 24, "K2": 3, "K3": 0, "K4": 0}
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"  # ignored by git
 TRAIN_PAIRS = 8  # write_dataset pairs of 512^2, resized to 1536^2 by DepthDataset: 4 steps at BATCH
 # per training step of the large preset (loss_fn: remat, no FOV head): 24 blocks x 2 ViTs in the
@@ -405,6 +445,26 @@ TINY_LOSS_RTOL, TINY_GRAD_RTOL, TINY_GRAD_ATOL = 1e-4, 1e-3, 1e-4
 # at 1e-4 (1e-3) two (45,560) gradient elements of the raw params fall outside rtol 1e-3 / atol
 # 1e-4 (scripts/torch_train_probe.py --tiny; PERF.md)
 TINY_CONDITIONING = 3e-5
+PARALLEL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_parallel"  # ignored by git
+PARALLEL_RANKS = 2  # one gloo group of 2 ranks on the one card
+PARALLEL_MODEL, PARALLEL_DEVICE = "large", "cuda"
+PARALLEL_FRAMES, PARALLEL_SHAPE = PIPELINE_FRAMES, (1080, 1920)  # the pipeline phase's frames
+PARALLEL_EXPORT = EXPORT_CUT  # the --dp 2 artifact: the large widths at 8 blocks, exact
+PARALLEL_BATCH = 2  # the maps, pipeline and export steps' batch: 1 frame per rank
+LATENCY_FRAMES = 4  # the latency runs at batch 1: 2 counted forwards, 4 timed frames
+DP_TIMED = 16  # the dp runner's frames/s window (batch SERVE_BATCH: 2 frames per rank)
+PARALLEL_TIMEOUT = 900  # seconds for the two ranks' steps
+# the bf16 envelope of ROADMAP.md (the JAX package's TPU figure), share of scale: the latency
+# path against the unsharded runner, inverse depth
+LATENCY_ENVELOPE = {"p99": 4.6e-3, "max": 1.09e-2}
+# what reads as a halo error in the latency path against the unsharded one (PERF.md §6, on the
+# card): a canonical inverse depth off by more than "max" of scale, or a top 1% of pixels more
+# than "crowding" times as dense near the band cut as elsewhere. The sound path reads 8.946e-3
+# and 0.92 (the runner's depth 0.99-1.01); a halo zeroed at any one decoder level 1.104e-1 to
+# 4.356e-1 and 5.85 to 12.00, its max within 6 rows of the cut. Every run checks both sides
+HALO_FAULT = {"max": 3e-2, "crowding": 3.0}
+LEVELS = (2, 4, 8, 16, 32)  # the decoder's levels in token grids: fused low-res .. finest
+DEPTH_CLAMP_INV = 1.0001e-4  # inverse depth at the runner's 1e4 m clamp (and a rounding above)
 
 
 def log(msg: str) -> None:
@@ -566,6 +626,9 @@ def kernels_k1(g) -> dict:
                 elif dtype == torch.bfloat16 and shape[0] == BATCH:
                     # the image and FOV ViTs' shape: 48 launches per forward
                     report["small_shape"] = report_entry(err, rel, times, shape, dtype)
+                elif dtype == torch.bfloat16 and shape[0] == 18:
+                    # the latency path's patch slice over 2 ranks: 35 patches pad to 36
+                    report["latency_shape"] = report_entry(err, rel, times, shape, dtype)
             _check(f"K1 {dtype} {shape}", rel, ATTN_BOUNDS[dtype], line)
     # K4 is K1's kernel body read through other strides: the same bits
     qkv = torch.randn((35 * BATCH, 577, 3072), generator=g, device="cuda").bfloat16()
@@ -603,6 +666,9 @@ def kernels_k3(g) -> dict:
                 line += suffix
                 if shape[:2] == (35 * BATCH, 433):
                     add_to_report(report, err, rel, times, shape, dtype)
+                elif dtype == torch.bfloat16 and shape[0] == 18:
+                    # the latency path's patch slice at fast over 2 ranks
+                    report["latency_shape"] = report_entry(err, rel, times, shape, dtype)
             _check(f"K3 {dtype} {shape}", rel, ATTN_BOUNDS[dtype], line)
     # -inf keys: a whole first key tile, scattered keys, and every key of one item
     b, s, heads = 3, 150, 2
@@ -685,6 +751,9 @@ def kernels_k2(g) -> dict:
                 report.update(report_entry(err, rel, times, shape, torch.bfloat16))
             elif shape == (BATCH, 48, 48, 256):
                 report["small_shape"] = report_entry(err, rel, times, shape, torch.bfloat16)
+            elif b == 1 and h in (26, 50):  # the latency path's bands plus halo
+                report[f"latency_shape_{h}x{w}"] = report_entry(err, rel, times, shape,
+                                                                torch.bfloat16)
         log(line)
         if not rel < K2_BOUND:
             raise AssertionError(f"K2 {shape}: rel error {rel:.3e} above bound")
@@ -2491,6 +2560,534 @@ def phase_distill() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# parallel: two ranks on the one card (parallel/, torch.distributed over gloo)
+
+
+def latency_shapes(cfg: DepthProConfig, n_ranks: int, batch: int = 1) -> dict:
+    """{"kernel rows x tokens x width": launches} of one latency forward on
+    each rank: the patch ViT on the rank's slice of the padded patch axis (K1
+    before the merge, K3 after it at the speed tiers), the image and FOV ViTs
+    on the whole batch."""
+    _, per = patch_split(35 * batch, n_ranks)
+    v = cfg.vit
+    width, full = 3 * v.embed_dim, v.num_tokens
+
+    def key(kernel, rows, tokens):
+        return f"{kernel} {rows}x{tokens}x{width}"
+
+    out = {key("K1", per, full): v.depth}
+    merge = min(cfg.token_merge_block, v.depth)
+    if cfg.token_merge_ratio > 0.0 and merge < v.depth:
+        kept = full - min(int(cfg.token_merge_ratio * (full - 1)), (full - 1) // 2)
+        out = {key("K1", per, full): merge, key("K3", per, kept): v.depth - merge}
+    out[key("K1", batch, full)] = 2 * v.depth
+    return out
+
+
+def band_rows(cfg: DepthProConfig, n_ranks: int) -> list:
+    """Each rank's rows at each decoder level (``LEVELS``) in latency mode."""
+    grid = cfg.vit.grid_size
+    sizes = [grid // n_ranks + (1 if i < grid % n_ranks else 0) for i in range(n_ranks)]
+    return [[k * s for k in LEVELS] for s in sizes]
+
+
+def k2_band_shapes(cfg: DepthProConfig, n_ranks: int, rank: int, batch: int = 1) -> list:
+    """The shapes K2 takes on ``rank`` in latency mode, in the decoder's order:
+    the residual blocks of the levels no wider than ``FUSED_MAX_WIDTH`` (the
+    width gate keeps the rest plain; the coarsest level has one block, the
+    others two), each on the band plus two halo rows from every neighbour."""
+    rows = band_rows(cfg, n_ranks)[rank]
+    halo = 2 * ((rank > 0) + (rank < n_ranks - 1))
+    grid = cfg.vit.grid_size
+    return [(batch, rows[i] + halo, k * grid, cfg.decoder_features)
+            for i, k in enumerate(LEVELS) if k * grid <= FUSED_MAX_WIDTH
+            for _ in range(1 if i == 0 else 2)]
+
+
+def band_cuts(cfg: DepthProConfig, n_ranks: int, height: int) -> list:
+    """The rows of a ``height``-row output where the latency bands meet: the
+    bands split the canonical map in whole token-grid rows, and the runner
+    resizes it to the frame."""
+    grid = cfg.vit.grid_size
+    sizes = [grid // n_ranks + (1 if i < grid % n_ranks else 0) for i in range(n_ranks)]
+    return [height * float(c) / grid for c in np.cumsum(sizes)[:-1]]
+
+
+def halo_window(cfg: DepthProConfig, height: int) -> float:
+    """Output rows within reach of a band's edge: two rows of the coarsest
+    decoder level (a residual block's halo there)."""
+    return 2.0 * height / (LEVELS[0] * cfg.vit.grid_size)
+
+
+def deviation(inv: np.ndarray, inv_ref: np.ndarray, cuts: list, window: float) -> dict:
+    """Inverse depth maps ``inv`` (N, H, W) against ``inv_ref``, as a share of
+    the reference's scale: median, p99 and max; where the max lies (its row
+    and its rows from the nearest cut); and how the top 1% of pixels crowd
+    the cuts: their share within ``window`` rows of a cut over the share of
+    all pixels there (about 1 where the error does not care where bands
+    meet)."""
+    share = np.abs(inv - inv_ref) / np.abs(inv_ref).max()
+    rows = np.arange(share.shape[1]) + 0.5
+    dist = np.min(np.abs(rows[:, None] - np.asarray(cuts, np.float64)[None]), axis=1)
+    near = dist <= window
+    p99 = float(np.quantile(share, 0.99))
+    top = share > p99
+    n_top = int(top.sum())
+    crowding = float(top[:, near].sum() / n_top / near.mean()) if n_top else 0.0
+    row = int(np.unravel_index(share.argmax(), share.shape)[1])
+    return {"median": float(np.median(share)), "p99": p99, "max": float(share.max()),
+            "equal": bool(np.array_equal(inv, inv_ref)), "max_row": row,
+            "max_from_cut": float(dist[row]), "crowding": crowding}
+
+
+def canonical_maps(params: dict, cfg: DepthProConfig, x: torch.Tensor, mesh) -> dict:
+    """The canonical inverse depth (H, W) of the one frame ``x`` (1, img,
+    img, 3) through ``forward`` with the latency hooks over ``mesh``: "sound",
+    then with the halo zeroed at each decoder level k in turn (the control)."""
+    from ml_depth_pro_video_tpu_torch.parallel import latency
+
+    precision, grid = Precision.bf16(), cfg.vit.grid_size
+    patch_vit_fn = latency._sharded_patch_vit(mesh, cfg, precision)
+    out = {}
+    for key, bands in [("sound", latency.RowBands),
+                       *((k, zero_halo_bands(k * grid)) for k in LEVELS)]:
+        with torch.inference_mode():
+            canonical, _ = forward(params, x, cfg, precision, compute_fov=False,
+                                   patch_vit_fn=patch_vit_fn, rows=bands(grid, mesh))
+        out[key] = canonical[0, ..., 0].float().cpu().numpy()
+    return out
+
+
+def zero_halo_bands(width: int):
+    """``RowBands`` whose halo rows are zeros at the decoder level ``width``
+    columns wide: a halo that never arrived, the control of the latency check."""
+    from ml_depth_pro_video_tpu_torch.parallel.latency import RowBands
+
+    class ZeroHalo(RowBands):
+        def extend(self, x, n):
+            y = super().extend(x, n)
+            if x.shape[2] == width:
+                y = y.clone()
+                if self.above:
+                    y[:, :n] = 0
+                if self.below:
+                    y[:, y.shape[1] - n:] = 0
+            return y
+
+    return ZeroHalo
+
+
+def parallel_rank(rank: int, port: str, folder: Path) -> None:
+    """One rank of the ``parallel`` phase: steps (a)-(e) in turn, each rank's
+    measurements written to ``folder/rank<rank>.json`` for the parent to check.
+    Every runner of the rank shares one param tree per model shape (random,
+    from ``SEED``, as every rank's and the unsharded runners' are)."""
+    from collections import Counter
+
+    from ml_depth_pro_video_tpu_torch.ops import resblock as resblock_module
+    from ml_depth_pro_video_tpu_torch.parallel import latency as latency_module
+    from ml_depth_pro_video_tpu_torch.parallel import multihost as mh
+    from ml_depth_pro_video_tpu_torch.parallel.mesh import make_mesh
+    from ml_depth_pro_video_tpu_torch.serve.server import FollowerServer
+    from ml_depth_pro_video_tpu_torch.video import runner as runner_module
+
+    dev, cuda = PARALLEL_DEVICE, PARALLEL_DEVICE == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    real_build, built = runner_module.build_params, {}
+
+    def shared_build(cfg, device, rng_seed=0):
+        key = (cfg.vit, cfg.decoder_features, cfg.dims_encoder, str(device), rng_seed)
+        if key not in built:
+            built[key] = real_build(cfg, device, rng_seed)
+        return built[key]
+
+    runner_module.build_params = shared_build
+    cfg = model_preset(PARALLEL_MODEL)
+    coord = ["--coordinator", f"127.0.0.1:{port}", "--num_processes", str(PARALLEL_RANKS),
+             "--process_id", str(rank)]
+    kw = dict(precision="bf16", rng_seed=SEED, decode_pool="thread", device=dev)
+    res = {"rank": rank}
+    paths = sorted(str(p) for p in (folder / "frames").glob("*.png"))
+
+    def counted(fn):
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, read_launches(), time.perf_counter() - t0
+
+    # (a) maps: the CLI over the frames, each rank writing its own rows' files
+    maps_out = folder / "maps"
+    _, launches, maps_s = counted(lambda: generate_depth_maps.main(
+        [str(folder / "frames"), "-o", str(maps_out), "--model", PARALLEL_MODEL, "--batch_size",
+         str(PARALLEL_BATCH), "--save_npz", "--colormap", "gray16", "--device", dev, *coord]))
+    cluster = mh.cluster()
+    res["backend"], res["reason"] = cluster.backend, cluster.reason
+    res["maps"] = {"launches": launches, "s": maps_s,
+                   "forwards": math.ceil(PARALLEL_FRAMES / PARALLEL_BATCH)}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    mh.barrier()
+    if mh.is_primary():
+        # the unsharded runner at the per-rank batch (1) on the same frames
+        plain = DepthVideoRunner(cfg=cfg, batch_size=PARALLEL_BATCH // PARALLEL_RANKS, **kw)
+        diffs = []
+        for r in plain.depth_stream(paths):
+            with np.load(maps_out / f"{Path(r['key']).stem}_depth.npz") as z:
+                diffs.append((np.array_equal(z["depth"], r["depth"]),
+                              float(np.abs(z["depth"] - r["depth"]).max())))
+        res["maps"].update(files=len(list(maps_out.glob("*_depth.npz"))),
+                           equal=all(d[0] for d in diffs), max_diff=max(d[1] for d in diffs))
+        del plain
+    mh.barrier()
+
+    # (b) latency: batch 1 split over the ranks, exact and fast, against the unsharded runner
+    rng = np.random.default_rng(SEED + 21)
+    frames = [rng.integers(0, 256, PARALLEL_SHAPE + (3,), dtype=np.uint8)
+              for _ in range(LATENCY_FRAMES)]
+    real_attn, real_fused = vit_module.attention_packed, resblock_module.fused_residual_block
+    real_comm = {"all_gather": mh.all_gather, "exchange": mh.exchange}
+    for speed in ("exact", "fast"):
+        shapes, k2 = Counter(), []
+        comm = {name: [0, 0.0] for name in real_comm}
+
+        def attn(qkv, heads, key_bias=None):
+            shapes[f"{'K1' if key_bias is None else 'K3'} {'x'.join(map(str, qkv.shape))}"] += 1
+            return real_attn(qkv, heads, key_bias)
+
+        def fused(x, *args):
+            k2.append(list(x.shape))
+            return real_fused(x, *args)
+
+        def synchronised(name):
+            def fn(*args):
+                sync()
+                t0 = time.perf_counter()
+                out = real_comm[name](*args)
+                sync()
+                comm[name][0] += 1
+                comm[name][1] += time.perf_counter() - t0
+                return out
+            return fn
+
+        runner = DepthVideoRunner(cfg=cfg, batch_size=1, speed=speed, mesh=make_mesh(),
+                                  parallel="latency", **kw)
+        vit_module.attention_packed, resblock_module.fused_residual_block = attn, fused
+        for name in real_comm:
+            setattr(mh, name, synchronised(name))
+        try:
+            got, launches, _ = counted(lambda: list(runner.depth_stream(frames[:2])))
+        finally:
+            vit_module.attention_packed, resblock_module.fused_residual_block = real_attn, real_fused
+            for name, fn in real_comm.items():
+                setattr(mh, name, fn)
+        entry = {"launches": launches, "forwards": 2, "shapes": dict(shapes), "k2": k2}
+        for name, (calls, secs) in comm.items():
+            entry[f"{name} per forward"], entry[f"{name} ms per forward"] = calls / 2, 500 * secs
+        if speed == "exact":
+            list(runner.depth_stream(frames[:1]))
+            _, _, secs = counted(lambda: list(runner.depth_stream(frames)))
+            entry["ms_per_frame"] = 1000 * secs / len(frames)
+            # one frame at the model's size through forward, its canonical inverse depth
+            # unclamped: sound, and with the halo zeroed at each decoder level (the control)
+            size = cfg.img_size
+            square = torch.from_numpy(rng.integers(0, 256, (1, size, size, 3), dtype=np.uint8))
+            x = square.to(dev).float() / 127.5 - 1.0
+            canonical = canonical_maps(runner.params, cfg, x, latency_module.make_sp_mesh())
+        mh.barrier()
+        if mh.is_primary():
+            plain = DepthVideoRunner(cfg=cfg, batch_size=1, speed=speed, **kw)
+            ref = list(plain.depth_stream(frames[:2]))
+            inv = np.stack([1.0 / g["depth"] for g in got])
+            inv_ref = np.stack([1.0 / r["depth"] for r in ref])
+            entry.update(deviation(inv, inv_ref, band_cuts(cfg, PARALLEL_RANKS, inv.shape[1]),
+                                   halo_window(cfg, inv.shape[1])),
+                         at_clamp=float(np.mean(inv_ref <= DEPTH_CLAMP_INV)),
+                         f_diff=max(abs(g["focallength_px"] - r["focallength_px"])
+                                    for g, r in zip(got, ref)))
+            if speed == "exact":
+                list(plain.depth_stream(frames[:1]))
+                _, _, secs = counted(lambda: list(plain.depth_stream(frames)))
+                entry["plain_ms_per_frame"] = 1000 * secs / len(frames)
+                with torch.inference_mode():
+                    want, _ = forward(plain.params, x, cfg, Precision.bf16(), compute_fov=False)
+                want = want[0, ..., 0].float().cpu().numpy()[None]
+                cuts, window = band_cuts(cfg, PARALLEL_RANKS, size), halo_window(cfg, size)
+                entry["canonical"] = {k: deviation(c[None], want, cuts, window)
+                                      for k, c in canonical.items()}
+            del plain
+        res[f"latency {speed}"] = entry
+        del runner
+        mh.barrier()
+
+    # (c) video pipeline: the CLI over the same frames without ground.json
+    plans = folder / "plans"
+    _, launches, secs = counted(lambda: cli_pipeline.main(
+        ["--frames_dir", str(folder / "video_frames"), "--output_dir", str(plans), "--model",
+         PARALLEL_MODEL, "--batch_size", str(PARALLEL_BATCH), "--num_workers", "2",
+         "--renderer", "fast", "--no_fit_shapes", "--device", dev, *coord]))
+    # frame 0 alone for the ground fit, then every frame in batches
+    res["pipeline"] = {"launches": launches, "s": secs,
+                       "forwards": 1 + math.ceil(PARALLEL_FRAMES / PARALLEL_BATCH)}
+
+    # (d) serve --parallel dp: rank 0 answers 4 requests, rank 1 follows its batches
+    dp_runner = DepthVideoRunner(cfg=cfg, batch_size=SERVE_BATCH, mesh=make_mesh(), **kw)
+    window = [frames[i % len(frames)] for i in range(DP_TIMED)]
+    list(dp_runner.depth_stream(window[:2 * SERVE_BATCH]))
+    _, _, secs = counted(lambda: list(dp_runner.depth_stream(window)))
+    res["dp_fps"] = DP_TIMED / secs
+    bodies = [Path(p).read_bytes() for p in paths[:SERVE_BATCH]]
+    sync()
+    reset_launches()
+    server = create_server(port=0, runner=dp_runner, parallel="dp", max_batch=SERVE_BATCH,
+                           max_wait_ms=200.0)
+    if isinstance(server, FollowerServer):
+        server.serve_forever()  # until rank 0's server closes
+        batches, answers = server.batches, []
+    else:
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        with ThreadPoolExecutor(SERVE_BATCH) as ex:
+            answers = list(ex.map(lambda b: decode_npz(post_depth(url, b, "?return=npz")[2]),
+                                  bodies))
+        batches = server.batcher.metrics.batches
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+    sync()
+    res["serve"] = {"launches": read_launches(), "forwards": batches}
+    mh.barrier()
+    if mh.is_primary():
+        # the unsharded runner at the per-rank batch, on the server's canonical frames
+        from PIL import Image
+
+        plain = DepthVideoRunner(cfg=cfg, batch_size=SERVE_BATCH // PARALLEL_RANKS, **kw)
+        images = [np.asarray(Image.open(p).convert("RGB")) for p in paths[:SERVE_BATCH]]
+        size = cfg.img_size
+        ref = list(plain.depth_stream([canonicalize(im, size) for im in images]))
+        devs, same = [], True
+        for (depth, payload), r, im in zip(answers, ref, images):
+            want, f = restore(r["depth"], r["focallength_px"], *im.shape[:2], size)
+            same &= bool(np.array_equal(depth, want)) and payload["focallength_px"] == f
+            devs.append(float(np.abs(depth - want).max() / np.abs(want).max()))
+        res["serve"].update(answers=len(answers), equal=same, max_dev=max(devs),
+                            shape=list(answers[0][0].shape))
+        del plain
+    del dp_runner, server
+    mh.barrier()
+
+    # (e) export: the parent's --dp 2 artifact served by a 2-rank dp runner
+    artifact = folder / "dp2.pt2"
+    t0 = time.perf_counter()
+    while not Path(str(artifact) + ".json").exists():
+        if time.perf_counter() - t0 > PARALLEL_TIMEOUT:
+            raise TimeoutError(f"no {artifact} from the parent")
+        time.sleep(0.5)
+    ecfg = PARALLEL_EXPORT
+    served = DepthVideoRunner(cfg=ecfg, batch_size=PARALLEL_BATCH, mesh=make_mesh(),
+                              exported_path=str(artifact), **kw)
+    eager = DepthVideoRunner(cfg=ecfg, batch_size=PARALLEL_BATCH, mesh=make_mesh(), **kw)
+    size = ecfg.img_size
+    square = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(4)]
+    got, launches, _ = counted(lambda: list(served.depth_stream(square)))
+    ref = list(eager.depth_stream(square))
+    res["export"] = {"launches": launches, "forwards": math.ceil(4 / PARALLEL_BATCH),
+                     "calls": served.exported_calls,
+                     "equal": all(np.array_equal(g["depth"], r["depth"])
+                                  and g["focallength_px"] == r["focallength_px"]
+                                  for g, r in zip(got, ref))}
+    del served, eager
+    res["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else None
+    (folder / f"rank{rank}.json").write_text(json.dumps(res))
+    mh.barrier()
+
+
+def halo_fault(d: dict) -> bool:
+    """Whether a deviation (``deviation``) reads as a halo error (``HALO_FAULT``)."""
+    return d["max"] > HALO_FAULT["max"] or d["crowding"] > HALO_FAULT["crowding"]
+
+
+def describe_deviation(d: dict) -> str:
+    return (f"(inverse depth, share of scale) median {d['median']:.3e} p99 {d['p99']:.3e} max "
+            f"{d['max']:.3e}, equal {d['equal']}; the max at row {d['max_row']}, "
+            f"{d['max_from_cut']:.1f} rows from where the bands meet; the top 1% of pixels "
+            f"{d['crowding']:.2f}x as dense near the cuts as elsewhere")
+
+
+def check_parallel(res: list, exact_fps: float, export_s: float, wall: float) -> dict:
+    """The parent's checks and lines of the ``parallel`` phase from the ranks'
+    results; returns the launches of both ranks' main-path runs."""
+    cfg, n = model_preset(PARALLEL_MODEL), PARALLEL_RANKS
+    log(f"[parallel] {n} ranks on one card, tensor collectives on {res[0]['backend']} "
+        f"({res[0]['reason']})")
+    total = {name: 0 for name in KERNELS}
+
+    def per_forward(step, want, tag):
+        for r in res:
+            got, fwd = r[step]["launches"], r[step]["forwards"]
+            total.update({k: total[k] + got[k] for k in KERNELS})
+            if got != {k: v * fwd for k, v in want.items()}:
+                raise AssertionError(f"parallel {tag}: rank {r['rank']} launched {got} in {fwd} "
+                                     f"forwards, want {want} per forward")
+        return f"{want} per rank per forward ({res[0][step]['forwards']} forwards per rank)"
+
+    maps = res[0]["maps"]
+    line = per_forward("maps", PER_FORWARD["exact"], "maps")
+    log(f"[parallel] (a) depth-pro-maps-torch --num_processes {n}: {PARALLEL_FRAMES} frames of "
+        f"{PARALLEL_SHAPE[0]}x{PARALLEL_SHAPE[1]}, {PARALLEL_MODEL}, bf16, exact, batch "
+        f"{PARALLEL_BATCH}: "
+        f"{maps['files']} npz files, launches {line}; against the unsharded runner at the "
+        f"per-rank batch: equal bit for bit {maps['equal']} (max |diff| {maps['max_diff']:.3e} m)")
+    if maps["files"] != PARALLEL_FRAMES or not maps["equal"]:
+        raise AssertionError(f"parallel maps: {maps}")
+
+    for speed in ("exact", "fast"):
+        e = res[0][f"latency {speed}"]
+        line = per_forward(f"latency {speed}", PER_FORWARD[speed], f"latency {speed}")
+        want = latency_shapes(apply_speed(cfg, speed) if speed != "exact" else cfg, n)
+        for r in res:
+            got = r[f"latency {speed}"]
+            forwards = got["forwards"]
+            if got["shapes"] != {k: v * forwards for k, v in want.items()}:
+                raise AssertionError(f"parallel latency {speed}: rank {r['rank']} attention "
+                                     f"shapes {got['shapes']}, want {want} per forward")
+            if got["k2"] != [list(s) for s in k2_band_shapes(cfg, n, r["rank"])] * forwards:
+                raise AssertionError(f"parallel latency {speed}: rank {r['rank']} K2 shapes "
+                                     f"{got['k2']}")
+        log(f"[parallel] (b) latency {speed}, batch 1: launches {line}; attention per rank per "
+            f"forward {want}; K2 on the bands plus halo {[k2_band_shapes(cfg, n, r) for r in range(n)]} "
+            f"(rows per rank per level {band_rows(cfg, n)}); per forward "
+            f"{e['all_gather per forward']:.0f} gathers, {e['all_gather ms per forward']:.3f} ms, "
+            f"and {e['exchange per forward']:.0f} halo exchanges, "
+            f"{e['exchange ms per forward']:.3f} ms (rank 0, synchronised); "
+            f"against the unsharded runner {describe_deviation(e)}, |f_px diff| {e['f_diff']:.3e}; "
+            f"{e['at_clamp']:.4f} of the reference's pixels at the 1e4 m clamp")
+        canonical = e.get("canonical", {})
+        if speed == "exact" and set(canonical) != {"sound", *map(str, LEVELS)}:
+            raise AssertionError(f"parallel latency exact: canonical maps {sorted(canonical)}")
+        for k, c in canonical.items():
+            what = ("sound" if k == "sound" else
+                    f"control, the halo zeroed at the level {k} token grids high")
+            log(f"[parallel] (b) canonical inverse depth of one {cfg.img_size}^2 frame through "
+                f"forward, {what}, against the unsharded forward: {describe_deviation(c)}; "
+                f"a halo error {halo_fault(c)} (max above {HALO_FAULT['max']:g} or crowding above "
+                f"{HALO_FAULT['crowding']:g})")
+            if halo_fault(c) != (k != "sound"):
+                raise AssertionError(f"parallel latency {speed}: the canonical map, {what}, "
+                                     f"reads as a halo error {halo_fault(c)}: {c}")
+        if (e["p99"] > LATENCY_ENVELOPE["p99"] or e["max"] > LATENCY_ENVELOPE["max"]
+                or e["crowding"] > HALO_FAULT["crowding"]):
+            raise AssertionError(f"parallel latency {speed}: outside the bf16 envelope or "
+                                 f"crowding the band cut: {e}")
+    e = res[0]["latency exact"]
+    log(f"[parallel] latency mode {e['ms_per_frame']:.3f} ms per frame over {n} ranks against the "
+        f"unsharded runner's {e['plain_ms_per_frame']:.3f} ms (batch 1, {LATENCY_FRAMES} frames of "
+        f"{PARALLEL_SHAPE[0]}x{PARALLEL_SHAPE[1]}, after a warm-up frame) on {card()}; both ranks "
+        "share the card's SMs, so this is the machinery's overhead, not a speedup")
+
+    pipe = res[0]["pipeline"]
+    line = per_forward("pipeline", PER_FORWARD["exact"], "pipeline")
+    plans = PARALLEL_DIR / "plans"
+    done = [set(json.loads((plans / f"processing_progress{s}.json").read_text()))
+            for s in ["", *(f".p{r}" for r in range(1, n))]]
+    names = {f"output_{i:06d}.png" for i in range(PARALLEL_FRAMES)}
+    ground = json.loads((PARALLEL_DIR / "video_frames" / "ground.json").read_text())
+    if (set().union(*done) != names or sum(map(len, done)) != len(names)
+            or not all(math.isfinite(v) for v in [*ground["normal"], ground["d"]])):
+        raise AssertionError(f"parallel pipeline: progress {done}, ground {ground}")
+    for name in names:
+        check_image(plans / name.replace(".png", "_clean_simple_view.png"), "parallel pipeline")
+    log(f"[parallel] (c) depth-pro-video-torch --num_processes {n}: one ground.json (d "
+        f"{ground['d']:.6g}), progress per rank {[len(d) for d in done]} (disjoint, every "
+        f"frame), {len(names)} plans decode; launches {line}; {pipe['s']:.3f} s")
+
+    serve = res[0]["serve"]
+    line = per_forward("serve", PER_FORWARD["exact"], "serve")
+    log(f"[parallel] (d) create_server(parallel='dp') over {n} ranks: {serve['answers']} "
+        f"requests answered by rank 0 ({serve['shape']}), {serve['forwards']} batches; launches "
+        f"{line}; against the unsharded runner at the per-rank batch on the canonical frames: "
+        f"equal bit for bit {serve['equal']}, max |diff| {serve['max_dev']:.3e} of scale (bound "
+        f"{SERVE_REF_BOUND:g})")
+    if serve["answers"] != SERVE_BATCH or serve["max_dev"] > SERVE_REF_BOUND:
+        raise AssertionError(f"parallel serve: {serve}")
+
+    exp = res[0]["export"]
+    line = per_forward("export", PARALLEL_EXPORT_PER_FORWARD, "export")
+    log(f"[parallel] (e) a --dp {n} artifact ({PARALLEL_EXPORT.vit.depth} blocks at width "
+        f"{PARALLEL_EXPORT.vit.embed_dim}, exact, batch "
+        f"{PARALLEL_BATCH}: {PARALLEL_BATCH // n} frame per rank; exported in {export_s:.3f} s "
+        f"while the ranks ran) served by a {n}-rank dp runner: {exp['calls']} of "
+        f"{exp['forwards']} forwards through it on every rank, launches {line}; equal to the "
+        f"eager dp runner bit for bit {exp['equal']}")
+    if not all(r["export"]["equal"] and r["export"]["calls"] == r["export"]["forwards"]
+               for r in res):
+        raise AssertionError(f"parallel export: {[r['export'] for r in res]}")
+    log(f"[parallel] dp {res[0]['dp_fps']} frames/s over {DP_TIMED} frames of "
+        f"{PARALLEL_SHAPE[0]}x{PARALLEL_SHAPE[1]} (batch {SERVE_BATCH}: {SERVE_BATCH // n} per "
+        f"rank) against the exact slice's {exact_fps} (one rank, batch {BATCH}); peak memory per "
+        f"rank {[r['peak_bytes'] for r in res]} bytes; the phase took {wall:.1f} s; on {card()}; "
+        "both ranks share the card's SMs: the overhead of the parallel machinery, not a speedup")
+    return total
+
+
+def phase_parallel(exact_fps: float) -> dict:
+    """Two ranks on the one card (gloo), each running ``parallel_rank``: the
+    maps CLI, latency exact and fast, the pipeline CLI, the dp server and a
+    ``--dp 2`` artifact, which this process exports while they run."""
+    from PIL import Image
+
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    frames = PARALLEL_DIR / "frames"
+    frames.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 7)  # the pipeline phase's frames
+    for i in range(PARALLEL_FRAMES):
+        Image.fromarray(rng.integers(0, 256, PARALLEL_SHAPE + (3,), dtype=np.uint8)).save(
+            frames / f"output_{i:06d}.png")
+    shutil.copytree(frames, PARALLEL_DIR / "video_frames")
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    logs = [open(PARALLEL_DIR / f"rank{r}.log", "w") for r in range(PARALLEL_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-rank",
+                               str(r), port, str(PARALLEL_DIR)], stdout=log,
+                              stderr=subprocess.STDOUT, cwd=str(Path(__file__).resolve().parent))
+             for r, log in enumerate(logs)]
+    try:
+        t1 = time.perf_counter()
+        export_infer(PARALLEL_EXPORT, "bf16", PARALLEL_BATCH, str(PARALLEL_DIR / "dp2.pt2"),
+                     device=PARALLEL_DEVICE, dp=PARALLEL_RANKS)
+        export_s = time.perf_counter() - t1
+        rcs = [p.wait(timeout=PARALLEL_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log_file in logs:
+            log_file.close()
+    wall = time.perf_counter() - t0
+    if any(rcs):
+        for r in range(PARALLEL_RANKS):
+            tail = (PARALLEL_DIR / f"rank{r}.log").read_text().splitlines()[-40:]
+            log(f"[parallel] rank {r} exited {rcs[r]}:\n" + "\n".join(tail))
+        raise AssertionError(f"parallel: the ranks exited {rcs}")
+    res = [json.loads((PARALLEL_DIR / f"rank{r}.json").read_text())
+           for r in range(PARALLEL_RANKS)]
+    total = check_parallel(res, exact_fps, export_s, wall)
+    shutil.rmtree(PARALLEL_DIR)
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -2517,6 +3114,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["maps_cli"] = phase_maps_cli()  # its decode pool's processes come and go
     paths["export"] = phase_export()
+    paths["parallel"] = phase_parallel(exact_fps)
     gc.collect()  # the earlier phases' runners: training needs tens of GB of its own
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2540,4 +3138,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of the parallel phase, started by it
+        sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])))
     sys.exit(main())

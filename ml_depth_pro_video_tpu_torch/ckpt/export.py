@@ -73,17 +73,25 @@ def example_params(cfg: DepthProConfig, quantize: bool = False, device="cuda") -
 
 def export_infer(cfg: DepthProConfig, precision="bf16", batch_size: int = 1,
                  path: str | None = None, quantize: bool = False,
-                 device="cuda") -> torch.export.ExportedProgram:
+                 device="cuda", dp: int = 1) -> torch.export.ExportedProgram:
     """Export the inference program for ``batch_size`` uint8 frames at the
     model's native resolution on ``device`` (the card unless the caller
     asks for the CPU; an artifact serves only runners of that device type);
     write it (``torch.export.save``)
     and its manifest to ``path`` when given. ``quantize`` exports the
-    int8-weight program (its params take the ``ckpt/quantize.py`` tree)."""
+    int8-weight program (its params take the ``ckpt/quantize.py`` tree).
+
+    ``dp > 1`` exports the data-parallel program of ``dp`` ranks: the
+    per-rank program at ``batch_size / dp`` frames, which each rank of a
+    runner with a dp mesh of ``dp`` ranks runs on its rows
+    (``parallel/spmd.py``). The manifest pins the rank count."""
+    if dp < 1 or batch_size % dp:
+        raise ValueError(f"batch_size {batch_size} must be a multiple of the mesh's dp={dp} "
+                         "(each rank takes batch/dp frames)")
     precision = resolve_precision(precision)
     device = resolve_device(device)
     params = example_params(cfg, quantize, device)
-    frames = torch.empty((batch_size, cfg.img_size, cfg.img_size, 3), dtype=torch.uint8,
+    frames = torch.empty((batch_size // dp, cfg.img_size, cfg.img_size, 3), dtype=torch.uint8,
                          device=device)
     with torch.no_grad():
         exported = torch.export.export(RunnerProgram(cfg, precision), (params, frames),
@@ -106,7 +114,7 @@ def export_infer(cfg: DepthProConfig, precision="bf16", batch_size: int = 1,
                 "token_merge_block": cfg.token_merge_block,
                 "quantized": quantize,
                 "platforms": [device.type],
-                "nr_devices": 1,
+                "nr_devices": dp,
             }, f, indent=1)
         LOGGER.info("exported %s (%d bytes, platform %s, batch %d, %dpx)", path,
                     os.path.getsize(path), device.type, batch_size, cfg.img_size)
@@ -127,15 +135,17 @@ def load_exported(path: str, cfg: DepthProConfig | None = None, precision=None,
     """Load an artifact of :func:`export_infer`; call ``exported.module()(params,
     frames_uint8)``. With ``cfg`` / ``precision`` / ``quantize`` and a
     manifest, a mismatched model identity raises; ``device`` must be of the
-    device type the program was traced on, and ``n_devices`` 1 (the
-    multi-device program is not ported: ROADMAP A item 10). The weight
+    device type the program was traced on; ``n_devices`` (1, or the ranks of
+    a dp-mesh runner) must be the count the manifest pins. The weight
     format is read from the artifact itself, so it is checked without a
     manifest too."""
     manifest_path = path + ".json"
     platform = None if device is None else torch.device(device).type
+    nr_devices = None
     if os.path.exists(manifest_path):
         with open(manifest_path) as f:
             m = json.load(f)
+        nr_devices = m.get("nr_devices", 1)
         want = {}
         if cfg is not None:
             want.update(img_size=cfg.img_size, token_merge_ratio=cfg.token_merge_ratio,
@@ -155,10 +165,13 @@ def load_exported(path: str, cfg: DepthProConfig | None = None, precision=None,
     elif cfg is not None:
         LOGGER.warning("no manifest %s: cannot verify the artifact matches the model config",
                        manifest_path)
-    if n_devices is not None and n_devices != 1:
-        raise ValueError(f"exported artifact {path} is a single-device program but the runner "
-                         f"serves {n_devices} devices (multi-device serving is not ported: "
-                         "ROADMAP A item 10)")
+    if n_devices is not None and nr_devices is None:
+        LOGGER.warning("no manifest %s: cannot verify the artifact's device count", manifest_path)
+    elif n_devices is not None and nr_devices != n_devices:
+        raise ValueError(
+            f"exported artifact {path} was exported for {nr_devices} device(s) but the runner "
+            f"serves {n_devices} - re-export with "
+            + (f"--dp {n_devices}" if n_devices > 1 else "no --dp"))
 
     exported = torch.export.load(path)
     inputs = user_inputs(exported)
@@ -195,24 +208,22 @@ def main(argv=None) -> None:
     ap.add_argument("--quantize", action="store_true",
                     help="export the int8-weight program (serve it with quantize=True)")
     ap.add_argument("--dp", type=int, default=0,
-                    help="the N-device data-parallel program (not ported yet: ROADMAP A item "
-                         "10); 0 = single-device")
+                    help="the data-parallel program of N ranks (each rank's program at "
+                         "batch_size/N frames, served by a runner with a dp mesh of N "
+                         "ranks); 0 = single-device")
     ap.add_argument("--tiny", action="store_true", help="miniature config (smoke tests)")
     ap.add_argument("--model", choices=list(MODEL_PRESETS), default="large",
                     help="model family member to export")
     ap.add_argument("--device", default="cuda",
                     help="device type the program is traced for: cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.dp:
-        raise NotImplementedError("--dp (the multi-device exported program) is not ported to "
-                                  "the PyTorch package yet: ROADMAP A item 10")
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     cfg = tiny_config() if args.tiny else model_preset(args.model)
     if args.speed != "exact":
         cfg = apply_speed(cfg, args.speed)
     exported = export_infer(cfg, args.precision, args.batch_size, args.output,
-                            quantize=args.quantize, device=args.device)
+                            quantize=args.quantize, device=args.device, dp=args.dp or 1)
     frames = user_inputs(exported)[-1]
     print(f"exported platform={frames.device.type} in={tuple(frames.shape)} "
           f"{frames.dtype} -> {args.output}")

@@ -11,8 +11,12 @@ depth video with a stable color range, optional temporal smoothing and
 ``--exported`` serves the forwards of the maps from a
 ``depth-pro-export-torch`` artifact (the runner's ``exported_path``).
 
-Not here yet: the multi-host (pod) flags, which wait for the port's
-``parallel/``. PNG output needs Pillow, colormaps other than gray need
+Across ranks (one process per card, ``parallel/multihost.py``): run the same
+command on every rank, under ``torchrun --nproc_per_node N`` or with
+``--coordinator host:port --num_processes N --process_id r``. Every rank
+takes rank 0's frame list, the frames split over the ranks in dp batches
+(``DepthVideoRunner.depth_stream_multihost``) and each rank writes only its
+own frames' files. PNG output needs Pillow, colormaps other than gray need
 matplotlib, and video input and output need OpenCV (or imageio).
 """
 
@@ -26,6 +30,8 @@ import time
 import numpy as np
 
 from ..models.depth_pro import MODEL_PRESETS, SPEED_PRESETS, model_preset
+from ..parallel import multihost
+from ..parallel.mesh import batch_sharding, make_mesh
 from ..video.runner import DepthVideoRunner
 
 VIDEO_EXTS = {".mp4", ".avi", ".mov", ".mkv", ".webm", ".m4v"}
@@ -88,23 +94,49 @@ def generate_depth_maps(
     packed_fetch: bool = False,
     device="cuda",
 ) -> list[str]:
-    """Run depth over a file or a directory; return the PNG paths written."""
+    """Run depth over a file or a directory; return the PNG paths written.
+
+    Over several ranks (``multihost.initialize`` first) every rank runs the
+    same call: the frames split over the ranks and each rank writes only its
+    own frames' files."""
+    pod = multihost.world_size() > 1
     if os.path.isdir(input_path):
         paths = sorted(glob.glob(os.path.join(input_path, pattern)))
     else:
         paths = [input_path]
+    if pod:
+        # every rank batches rank 0's list: a stale shared-filesystem glob on
+        # one rank would desync the row split (and the empty-input error below
+        # must fire on every rank or none)
+        paths = multihost.broadcast_json(paths)
     if not paths:
         raise FileNotFoundError(f"no inputs under {input_path}")
     os.makedirs(output_dir, exist_ok=True)
+    if pod and exported_path is not None:
+        raise ValueError("--exported serves one process's program; a run over several ranks "
+                         "runs eagerly")
+    if pod and packed_fetch:
+        raise ValueError("--packed_fetch is single-host only (ranks fetch only their own rows)")
     if runner is None:
+        mesh = None
+        if pod:
+            # one dp mesh over every rank; the runner rounds batch_size to a dp multiple
+            mesh = make_mesh()
+            batch_size = max(batch_size, multihost.world_size())
         runner = DepthVideoRunner(cfg=model_preset(model), precision=_precision(half_precision),
                                   batch_size=batch_size, downscale_factor=downscale_factor,
-                                  speed=speed, exported_path=exported_path,
+                                  speed=speed, mesh=mesh, exported_path=exported_path,
                                   fetch_pack="u16" if packed_fetch else "none", device=device)
+    stream = runner.depth_stream_multihost(paths) if pod else runner.depth_stream(paths)
+    n_expect = len(paths)
+    if pod:
+        # this rank yields only its rows; the progress counts them
+        n_expect = multihost.local_item_count(batch_sharding(runner.mesh), runner.batch_size,
+                                              len(paths))
     written = []
     t0 = time.time()
     # one bad frame must not lose the rest of the batch
-    for i, result in enumerate(runner.depth_stream(paths)):
+    for i, result in enumerate(stream):
         stem = os.path.splitext(os.path.basename(result["key"]))[0]
         try:
             out = os.path.join(output_dir, f"{stem}_depth.png")
@@ -114,10 +146,14 @@ def generate_depth_maps(
                 np.savez_compressed(os.path.join(output_dir, f"{stem}_depth.npz"),
                                     depth=result["depth"],
                                     focallength_px=result["focallength_px"])
-            print(f"[{i+1}/{len(paths)}] {stem} ({(time.time()-t0)/(i+1):.2f}s/frame avg)")
+            print(f"[{i+1}/{n_expect}] {stem} ({(time.time()-t0)/(i+1):.2f}s/frame avg)")
         except Exception as exc:  # noqa: BLE001 - reported, the stream goes on
             print(f"Error processing {stem}: {exc}")
-    print(f"Successfully wrote {len(written)}/{len(paths)} depth maps")
+    if pod:
+        print(f"[rank {multihost.rank()}/{multihost.world_size()}] wrote {len(written)} of "
+              f"this rank's rows ({len(paths)} frames total)")
+    else:
+        print(f"Successfully wrote {len(written)}/{len(paths)} depth maps")
     return written
 
 
@@ -223,9 +259,7 @@ def generate_depth_video(
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(
-        description="Batch depth maps (PyTorch port). Single host only: the multi-host "
-                    "flags of depth-pro-maps come with the port's parallel package.")
+    ap = argparse.ArgumentParser(description="Batch depth maps (PyTorch port)")
     ap.add_argument("input", help="image file, frames directory, or (with --video_out) a "
                                   "video file")
     ap.add_argument("-o", "--output_dir", help="PNG output directory (required unless "
@@ -271,7 +305,13 @@ def main(argv=None) -> None:
     ap.add_argument("--model", choices=list(MODEL_PRESETS), default="large",
                     help="model family member (base/small need a trained checkpoint)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    multihost.add_multihost_args(ap)
     args = ap.parse_args(argv)
+    # before the model is built (nothing to join single-process); over
+    # several ranks the frames split over them and each writes its own
+    if multihost.initialize_from_args(args) and args.video_out:
+        ap.error("--video_out needs every frame in playback order on one rank; run it on one "
+                 "rank (or write PNGs over several and encode them afterwards)")
     is_video = os.path.splitext(args.input)[1].lower() in VIDEO_EXTS
     if args.video_out:
         generate_depth_video(

@@ -1,8 +1,8 @@
 """``depth-pro-video-torch``: video frames -> depth -> floor plans with the PyTorch port.
 
 Same flags and behaviour as the JAX package's ``depth-pro-video``
-(``ml_depth_pro_video_tpu/video/pipeline.py::main``) on one host, plus
-``--device`` (default ``cuda``)::
+(``ml_depth_pro_video_tpu/video/pipeline.py::main``), plus ``--device``
+(default ``cuda``)::
 
   depth-pro-video-torch --frames_dir frames/ --output_dir plans/ --batch_size 2 \\
       --num_workers 4 --renderer fast
@@ -11,10 +11,11 @@ Same flags and behaviour as the JAX package's ``depth-pro-video``
 and Pillow), skipping the decode when a complete frame set is already there.
 ``--geometry device`` renders each plain floor plan with the program of
 ``geom/device_floorplan.py`` on ``--device`` (it implies
-``--no_fit_shapes``). The multi-host flags (``--coordinator``,
-``--num_processes``, ``--process_id``) are accepted and raise
-``NotImplementedError`` naming their ROADMAP item (A item 10).
-The default ``--renderer matplotlib`` and the full artifact set of
+``--no_fit_shapes``). Over several ranks (``torchrun --nproc_per_node N``,
+or ``--coordinator``, ``--num_processes``, ``--process_id`` on every rank)
+the frames split over the ranks and each writes its own frames' plans
+(``video/pipeline.py``); rank 0 alone decodes ``--video`` while the others
+wait. The default ``--renderer matplotlib`` and the full artifact set of
 ``--fit_shapes`` need matplotlib; shape fitting needs scikit-learn and scipy.
 """
 
@@ -25,7 +26,29 @@ import glob
 import os
 
 from ..models.depth_pro import MODEL_PRESETS, SPEED_PRESETS
-from ..video.pipeline import MULTIHOST_UNPORTED, process_images_to_floor_plans
+from ..parallel import multihost
+from ..video.pipeline import process_images_to_floor_plans
+
+
+def _decode_on_primary(args) -> None:
+    """Rank 0 decodes ``args.video`` onto the shared filesystem while the other
+    ranks wait; its success or failure is broadcast first, so a failure
+    raises on every rank instead of stranding the others at the barrier."""
+    from ..video.decode import extract_frames
+
+    err = None
+    if multihost.is_primary():
+        print(f"Decoding {args.video} -> {args.frames_dir}")
+        try:
+            extract_frames(args.video, args.frames_dir)
+        except Exception as exc:  # noqa: BLE001 - re-raised on every rank just below
+            err = f"{type(exc).__name__}: {exc}"
+    else:
+        print(f"waiting for rank 0 to decode {args.video}...")
+    err = multihost.broadcast_json(err)
+    if err is not None:
+        raise RuntimeError(f"rank 0's video decode failed (every rank stops): {err}")
+    multihost.barrier("video-decode")
 
 
 def _frames_complete(args) -> bool:
@@ -113,8 +136,8 @@ def main(argv=None):
                     help="ToMe token-merge approximation tiers (balanced=0.25, fast=0.5 "
                          "merge ratio)")
     ap.add_argument("--parallel", choices=["none", "dp", "latency"], default="none",
-                    help="multi-device modes (not ported yet: ROADMAP A item 10); on one "
-                         "device dp and latency run unsharded")
+                    help="over several ranks the frames split over them (dp; latency becomes "
+                         "dp there); one rank runs unsharded")
     ap.add_argument("--packed_fetch", action="store_true",
                     help="fetch depth as device-quantized log-u16 (half the device->host "
                          "bytes; <=1.5e-4 relative error, video/pack.py)")
@@ -132,15 +155,10 @@ def main(argv=None):
     ap.add_argument("--z_min", type=float, default=None)
     ap.add_argument("--z_max", type=float, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    g = ap.add_argument_group("multi-host (not ported yet: ROADMAP A item 10)")
-    g.add_argument("--coordinator", default=None, help="coordinator address host:port")
-    g.add_argument("--num_processes", type=int, default=None,
-                   help="total number of host processes in the cluster")
-    g.add_argument("--process_id", type=int, default=None,
-                   help="this host's rank in [0, num_processes)")
+    multihost.add_multihost_args(ap)
     args = ap.parse_args(argv)
-    if any(v is not None for v in (args.coordinator, args.num_processes, args.process_id)):
-        raise NotImplementedError(MULTIHOST_UNPORTED)
+    # before the model is built (nothing to join single-process)
+    pod = multihost.initialize_from_args(args)
     if args.x_limits is None and args.x_min is not None and args.x_max is not None:
         args.x_limits = [args.x_min, args.x_max]
     if args.z_limits is None and args.z_min is not None and args.z_max is not None:
@@ -151,7 +169,12 @@ def main(argv=None):
         from ..video.decode import extract_frames
 
         args.frames_dir = args.frames_dir or os.path.splitext(args.video)[0] + "_frames"
-        if not _frames_complete(args):
+        complete = _frames_complete(args)
+        if pod:
+            # every rank takes rank 0's answer (the barrier is collective)
+            if not multihost.broadcast_from_primary(complete):
+                _decode_on_primary(args)
+        elif not complete:
             print(f"Decoding {args.video} -> {args.frames_dir}")
             extract_frames(args.video, args.frames_dir)
     process_images_to_floor_plans(

@@ -170,9 +170,13 @@ def _apply_upsample_block(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def encoder_apply(params: dict, x: torch.Tensor, cfg: DepthProConfig,
-                  precision: Precision, remat: bool = False) -> list[torch.Tensor]:
+                  precision: Precision, remat: bool = False,
+                  patch_vit_fn=None) -> list[torch.Tensor]:
     """Multi-resolution encoding. x: (B, 4p, 4p, 3). ``remat`` recomputes
-    each block of the patch and image ViTs in the backward pass."""
+    each block of the patch and image ViTs in the backward pass.
+    ``patch_vit_fn(params, pyramid) -> (tokens, (h0, h1))`` replaces the
+    35-patch backbone call: the latency path (``parallel/latency.py``) splits
+    the patch axis over the ranks there."""
     vit_cfg = cfg.vit
     b = x.shape[0]
     p = vit_cfg.img_size
@@ -187,10 +191,13 @@ def encoder_apply(params: dict, x: torch.Tensor, cfg: DepthProConfig,
                          x2], dim=0)                            # 35B
 
     # only the 35-patch ViT merges tokens; the image and FOV ViTs stay exact
-    tokens, (h0, h1) = vit_apply(params["patch_vit"], pyramid, vit_cfg, precision,
-                                 capture_blocks=cfg.hook_block_ids,
-                                 merge_ratio=cfg.token_merge_ratio,
-                                 merge_block=cfg.token_merge_block, remat=remat)
+    if patch_vit_fn is None:
+        tokens, (h0, h1) = vit_apply(params["patch_vit"], pyramid, vit_cfg, precision,
+                                     capture_blocks=cfg.hook_block_ids,
+                                     merge_ratio=cfg.token_merge_ratio,
+                                     merge_block=cfg.token_merge_block, remat=remat)
+    else:
+        tokens, (h0, h1) = patch_vit_fn(params["patch_vit"], pyramid)
     n0, n1 = 25 * b, 9 * b
     latent0 = merge_patches(tokens_to_grid(h0[:n0], g), b, pad0)
     latent1 = merge_patches(tokens_to_grid(h1[:n0], g), b, pad0)
@@ -215,17 +222,30 @@ def encoder_apply(params: dict, x: torch.Tensor, cfg: DepthProConfig,
     return [latent0, latent1, x0_feat, x1_feat, fused]
 
 
-def _residual(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return residual_block(x, p["w1"], p["b1"], p["w2"], p["b2"])
+def _conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
+             rows=None) -> torch.Tensor:
+    """3x3 conv, pad 1; on a row band (``rows``) with the neighbours' halo row."""
+    if rows is None:
+        return conv2d(x, w, b, padding=1)
+    return rows.crop(conv2d(rows.extend(x, 1), w, b, padding=1), 1)
 
 
-def _fusion_apply(p: dict, x0: torch.Tensor, x1: torch.Tensor | None) -> torch.Tensor:
+def _residual(p: dict, x: torch.Tensor, rows=None) -> torch.Tensor:
+    """The residual block; on a row band (``rows``) it runs on the band plus
+    its neighbours' two halo rows (the block's two 3x3 convs) and is cropped."""
+    if rows is None:
+        return residual_block(x, p["w1"], p["b1"], p["w2"], p["b2"])
+    return rows.crop(residual_block(rows.extend(x, 2), p["w1"], p["b1"], p["w2"], p["b2"]), 2)
+
+
+def _fusion_apply(p: dict, x0: torch.Tensor, x1: torch.Tensor | None,
+                  rows=None) -> torch.Tensor:
     """FeatureFusionBlock2d; with the 2x upsample present, the trailing 1x1
     out-conv is folded into the deconv matmul."""
     x = x0
     if x1 is not None:
-        x = x + _residual(p["res1"], x1)
-    x = _residual(p["res2"], x)
+        x = x + _residual(p["res1"], x1, rows)
+    x = _residual(p["res2"], x, rows)
     if p["deconv_w"] is not None:
         wd = p["deconv_w"]                # (C, 4*M) packed (a, b, m)
         wo = p["out"]["w"][0, 0]          # (M, O)
@@ -235,35 +255,41 @@ def _fusion_apply(p: dict, x0: torch.Tensor, x1: torch.Tensor | None) -> torch.T
     return conv2d(x, p["out"]["w"], p["out"]["b"])
 
 
-def decoder_apply(params: dict, encodings: list[torch.Tensor]):
+def decoder_apply(params: dict, encodings: list[torch.Tensor], rows=None):
     """Fuse low -> high resolution. Returns (features, lowres_features);
-    the latter feeds the FOV head."""
-    proj = [e if w is None else conv2d(e, w, padding=1)
+    the latter feeds the FOV head. With ``rows`` (``parallel/latency.py``)
+    every encoding is this rank's band of rows and so are the results."""
+    proj = [e if w is None else _conv3x3(e, w, rows=rows)
             for e, w in zip(encodings, params["convs"])]
     fusions = params["fusions"]
     features = proj[-1]
     lowres = features
-    features = _fusion_apply(fusions[-1], features, None)
+    features = _fusion_apply(fusions[-1], features, None, rows)
     for i in range(len(proj) - 2, -1, -1):
-        features = _fusion_apply(fusions[i], features, proj[i])
+        features = _fusion_apply(fusions[i], features, proj[i], rows)
     return features, lowres
 
 
 def head_apply(params: dict, x: torch.Tensor,
-               precision: Precision = Precision.fp32()) -> torch.Tensor:
+               precision: Precision = Precision.fp32(), rows=None) -> torch.Tensor:
     """Depth head. The deconv and the following 3x3 conv are folded into
     one 3x3 conv at half resolution over subpixel-packed channels; convs run
-    in the compute dtype; the final 1x1 conv is fp32."""
+    in the compute dtype; the final 1x1 conv is fp32. With ``rows`` x and the
+    result are this rank's band of rows."""
     x = x.to(precision.compute_dtype)
-    x = conv2d(x, params["conv_in"]["w"], params["conv_in"]["b"], padding=1)
+    x = _conv3x3(x, params["conv_in"]["w"], params["conv_in"]["b"], rows)
     wcomp = params.get("folded_wcomp")
     if wcomp is None:
         wcomp = fold_deconv2x2_conv3x3(params["deconv"]["w"], params["deconv"]["b"],
                                        params["conv_mid"]["w"])
     cin = x.shape[-1]
-    h = conv2d(x, wcomp[:, :, :cin], padding=1)
-    ones = torch.ones((1,) + tuple(x.shape[1:3]) + (1,), dtype=x.dtype, device=x.device)
+    xe = x if rows is None else rows.extend(x, 1)
+    h = conv2d(xe, wcomp[:, :, :cin], padding=1)
+    # the ones channel over the band and its halo: zero padding only at the image's own edges
+    ones = torch.ones((1,) + tuple(xe.shape[1:3]) + (1,), dtype=x.dtype, device=x.device)
     h = h + conv2d(ones, wcomp[:, :, cin:], padding=1)
+    if rows is not None:
+        h = rows.crop(h, 1)
     n = params["conv_mid"]["b"].shape[0]
     h = h + params["conv_mid"]["b"].repeat(4).to(h.dtype)
     h = F.relu(h).float()
@@ -309,29 +335,43 @@ def fov_apply(params: dict, x: torch.Tensor, lowres: torch.Tensor, cfg: DepthPro
 
 def forward(params: dict, x: torch.Tensor, cfg: DepthProConfig,
             precision: Precision = Precision.fp32(), compute_fov: bool = True,
-            remat: bool = False):
+            remat: bool = False, patch_vit_fn=None, rows=None):
     """(B, img, img, 3) -> (canonical inverse depth (B, img, img, 1),
     fov_deg (B,) or None). ``compute_fov=False`` skips the third ViT;
     ``remat=True`` recomputes the encoder ViTs' blocks in the backward pass
-    (training; the values are those of ``remat=False``)."""
+    (training; the values are those of ``remat=False``).
+
+    ``patch_vit_fn`` and ``rows`` are the latency hooks of
+    ``parallel/latency.py`` (the JAX package's ``patch_vit_fn`` and
+    ``constrain``): the former replaces the 35-patch backbone call, the
+    latter runs the decoder and the head on this rank's band of rows, with
+    the neighbours' halo rows exchanged before every 3x3 conv, and gathers
+    the bands of the result."""
     if x.shape[1] != cfg.img_size or x.shape[2] != cfg.img_size:
         raise ValueError(f"forward expects {cfg.img_size}x{cfg.img_size} input, got "
                          f"{tuple(x.shape)}; use infer_fn() for arbitrary sizes")
-    encodings = encoder_apply(params["encoder"], x, cfg, precision, remat)
-    features, lowres = decoder_apply(params["decoder"], encodings)
-    canonical = head_apply(params["head"], features, precision)
+    encodings = encoder_apply(params["encoder"], x, cfg, precision, remat, patch_vit_fn)
+    if rows is not None:
+        encodings = [rows.take(e) for e in encodings]
+    features, lowres = decoder_apply(params["decoder"], encodings, rows)
+    canonical = head_apply(params["head"], features, precision, rows)
     fov_deg = None
+    if rows is not None:
+        canonical = rows.gather(canonical)
     if cfg.use_fov_head and compute_fov:
+        if rows is not None:
+            lowres = rows.gather(lowres)
         fov_deg = fov_apply(params["fov"], x, lowres, cfg, precision)
     return canonical, fov_deg
 
 
 def infer_fn(params: dict, x: torch.Tensor, f_px: torch.Tensor | None, cfg: DepthProConfig,
              precision: Precision = Precision.fp32(), interpolation_mode: str = "bilinear",
-             derive_missing: bool = False) -> dict:
+             derive_missing: bool = False, patch_vit_fn=None, rows=None) -> dict:
     """The ``infer()`` contract, NHWC. x: (B, H, W, 3) normalized; f_px:
     (B,) or None. With ``derive_missing=True`` NaN entries of ``f_px`` are
     replaced by the FOV-derived focal length and the others kept.
+    ``patch_vit_fn`` / ``rows``: the latency hooks (see ``forward``).
     Returns {"depth": (B, H, W) fp32 metres, "focallength_px": (B,)}."""
     b, h, w = x.shape[0], x.shape[1], x.shape[2]
     s = cfg.img_size
@@ -342,7 +382,8 @@ def infer_fn(params: dict, x: torch.Tensor, f_px: torch.Tensor | None, cfg: Dept
     if need_fov and not cfg.use_fov_head:
         raise ValueError("f_px is required for every frame when the model has no FOV head "
                          "(cfg.use_fov_head=False): there is nothing to derive it from")
-    canonical, fov_deg = forward(params, xi, cfg, precision, compute_fov=need_fov)
+    canonical, fov_deg = forward(params, xi, cfg, precision, compute_fov=need_fov,
+                                 patch_vit_fn=patch_vit_fn, rows=rows)
     canonical = canonical[..., 0].float()
 
     if need_fov:

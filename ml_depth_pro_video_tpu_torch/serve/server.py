@@ -20,6 +20,16 @@ Endpoints:
                             — see :class:`_Sessions`.
 
 ``depth-pro-serve-torch`` runs it (``--device cuda`` by default).
+
+Over several ranks (one process per card, ``parallel/multihost.py``) with
+``--parallel dp`` or ``latency``: rank 0 runs the HTTP server and the
+batcher, and hands every coalesced batch to the other ranks by broadcast
+before it runs it; they run a follower loop (:class:`FollowerServer`) that
+computes their share (their rows under dp, their patches and row bands under
+latency) until rank 0's server closes and its stop reaches them. A failed
+forward ends every rank: a rank that fails alone leaves the others at another
+collective, so the group cannot go on (the follower re-raises; rank 0 answers
+the batch's clients with the error and its ``serve_forever`` raises).
 """
 
 from __future__ import annotations
@@ -35,8 +45,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
-import torch
 
+from ..parallel import multihost
+from ..parallel.mesh import make_mesh
 from ..video.temporal import TemporalSmoother
 
 LOGGER = logging.getLogger(__name__)
@@ -256,6 +267,8 @@ class _Batcher:
         self.canonical = canonical
         self.size = int(runner.cfg.img_size)
         self.timeout_s = timeout_s
+        # over several ranks, the exception of a failed batch, which ended the batcher
+        self.fatal: Exception | None = None
         self.metrics = _Metrics()
         self.queue: queue.Queue = queue.Queue()
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -277,6 +290,8 @@ class _Batcher:
         return result
 
     def _infer(self, image: np.ndarray) -> dict:
+        if self.fatal is not None:
+            raise RuntimeError(f"the server's ranks stopped: {self.fatal!r}")
         h, w = image.shape[:2]
         rescaled = self.canonical and (h, w) != (self.size, self.size)
         if rescaled:
@@ -330,6 +345,20 @@ class _Batcher:
                 for _, slot, done in batch:
                     slot["error"] = repr(exc)
                     done.set()
+                if isinstance(self.runner, _Leader):
+                    # the ranks' collectives no longer line up: no next batch
+                    self.fatal = exc
+                    rest = [holdover] if holdover is not None else []
+                    while True:
+                        try:
+                            rest.append(self.queue.get_nowait())
+                        except queue.Empty:
+                            break
+                    for item in rest:
+                        if item is not _STOP:
+                            item[1]["error"] = repr(exc)
+                            item[2].set()
+                    return
 
 
 def make_handler(batcher: _Batcher, sessions: _Sessions | None = None):
@@ -452,17 +481,75 @@ def make_handler(batcher: _Batcher, sessions: _Sessions | None = None):
     return Handler
 
 
+class _Leader:
+    """Rank 0's runner over several ranks: every batch goes to the other
+    ranks (``FollowerServer``) before rank 0 runs it, so that all of them
+    run it together; ``stop`` ends their loops. Everything else is the
+    runner's."""
+
+    def __init__(self, runner):
+        self.runner = runner
+
+    def __getattr__(self, name):
+        return getattr(self.runner, name)
+
+    def depth_stream(self, images):
+        images = list(images)
+        multihost.broadcast_from_primary(("batch", images))
+        return self.runner.depth_stream(images)
+
+    def stop(self) -> None:
+        multihost.broadcast_from_primary(("stop", None))
+
+
 class DepthServer(ThreadingHTTPServer):
     """The HTTP server with its batcher (``.batcher``, whose ``.runner`` is
-    the resident model); ``server_close`` also stops the batcher thread."""
+    the resident model); ``server_close`` also stops the batcher thread and,
+    over several ranks, the other ranks' follower loops."""
 
     def __init__(self, address, handler, batcher: _Batcher):
         super().__init__(address, handler)
         self.batcher = batcher
 
+    def service_actions(self):
+        fatal = self.batcher.fatal
+        if fatal is not None:
+            raise RuntimeError("a batch failed on a server over several ranks: their "
+                               "collectives no longer line up, so every rank stops") from fatal
+
     def server_close(self):
         super().server_close()
-        self.batcher.close()
+        leader = self.batcher.runner
+        if isinstance(leader, _Leader) and self.batcher.fatal is None:
+            # the stop is a collective: it waits for the batch in flight
+            self.batcher.close(timeout=None)
+            leader.stop()
+        else:
+            self.batcher.close()
+
+
+class FollowerServer:
+    """A rank other than 0 of a server over several ranks: it computes its
+    share of every batch that rank 0's batcher runs, until rank 0's server
+    closes. ``serve_forever`` and ``server_close`` stand where a
+    ``DepthServer``'s do, so ``main`` is one program on every rank. A failed
+    forward raises out of ``serve_forever``: rank 0 is no longer at the
+    collective this rank would wait in next."""
+
+    def __init__(self, runner):
+        self.runner = runner
+        self.batches = 0
+
+    def serve_forever(self) -> None:
+        while True:
+            kind, images = multihost.broadcast_from_primary(None)
+            if kind == "stop":
+                return
+            self.batches += 1
+            list(self.runner.depth_stream(images))
+
+    def server_close(self) -> None:
+        pass
 
 
 def create_server(host: str = "127.0.0.1", port: int = 8500, runner=None,
@@ -486,26 +573,32 @@ def create_server(host: str = "127.0.0.1", port: int = 8500, runner=None,
     max_batch``: the batcher canonicalises every request to the model's
     size, so every batch has its shape (on the card the artifact currently
     starts and runs slower than eager code: PERF.md, ROADMAP B8).
-    ``parallel="dp"|"latency"`` with
-    one visible card runs unsharded; over more cards it is not ported yet
-    (ROADMAP A item 10)."""
+
+    ``parallel="dp"|"latency"`` over several ranks (``multihost.initialize``
+    first; every rank calls this): rank 0 gets the ``DepthServer``, every
+    other rank a ``FollowerServer``. A single rank runs unsharded whatever
+    ``parallel`` says; several ranks need dp or latency."""
     from ..models.depth_pro import model_preset
     from ..video.runner import DepthVideoRunner
 
     if parallel not in ("none", "dp", "latency"):
         raise ValueError(f"parallel must be 'none', 'dp' or 'latency', got {parallel!r}")
+    ranks = multihost.world_size()
+    if ranks > 1 and parallel == "none":
+        raise ValueError(f"--parallel none serves on one rank; over {ranks} ranks pass "
+                         "--parallel dp or latency")
+    mesh = None
     if runner is None and parallel in ("dp", "latency"):
-        cards = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
-        if cards > 1:
-            raise NotImplementedError(
-                f"--parallel {parallel} over {cards} CUDA devices is not ported to the "
-                "PyTorch package yet: ROADMAP A item 10; make one device visible "
-                "(CUDA_VISIBLE_DEVICES) or use --parallel none")
-        LOGGER.info("--parallel %s: single device, running unsharded", parallel)
+        if ranks > 1:
+            mesh = make_mesh(tp=1)
+        else:
+            LOGGER.info("--parallel %s: one rank drives one device, running unsharded "
+                        "(launch one rank per card to use more)", parallel)
     # the requests arrive decoded, and the runner's process pool decodes
     # only file paths: threads are all the server's runner can use
     runner = runner or DepthVideoRunner(
         cfg=model_preset(model), precision="bf16", batch_size=max_batch, speed=speed,
+        mesh=mesh, parallel="latency" if parallel == "latency" else "dp",
         exported_path=exported_path, quantize=quantize, decode_pool="thread", device=device)
     # the batcher must coalesce up to the runner's batch or every batch pads
     max_batch = max(max_batch, runner.batch_size)
@@ -517,7 +610,11 @@ def create_server(host: str = "127.0.0.1", port: int = 8500, runner=None,
             LOGGER.info("warmup %sx%s canonicalized to %dx%d (the batcher resizes "
                         "all requests)", *warmup_shape, size, size)
         dummy = np.zeros((size, size, 3), np.uint8)
-        list(runner.depth_stream([dummy] * max_batch))
+        list(runner.depth_stream([dummy] * max_batch))  # on every rank at once
+    if ranks > 1:
+        if not multihost.is_primary():
+            return FollowerServer(runner)
+        runner = _Leader(runner)
     batcher = _Batcher(runner, max_batch=max_batch, max_wait_ms=max_wait_ms)
     sessions = _Sessions(ttl_s=session_ttl_s, max_sessions=max_sessions)
     return DepthServer((host, port), make_handler(batcher, sessions), batcher)
@@ -537,8 +634,8 @@ def main(argv=None):
                     help="HxW: run one full batch before serving, e.g. 1536x1536 "
                          "(canonicalized to the model's square size)")
     ap.add_argument("--parallel", choices=["none", "dp", "latency"], default="none",
-                    help="multi-device modes (not ported yet: ROADMAP A item 10); on one "
-                         "visible device they run unsharded")
+                    help="over several ranks: dp splits each batch's requests over them, "
+                         "latency splits the model; one rank runs unsharded")
     ap.add_argument("--speed", choices=sorted(SPEED_PRESETS), default="exact",
                     help="ToMe token-merge approximation tiers "
                          "(balanced=0.25, fast=0.5 merge ratio)")
@@ -559,7 +656,9 @@ def main(argv=None):
                     help="concurrent ?session smoother states kept (LRU-evicted beyond this)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model: cuda (default) or cpu")
+    multihost.add_multihost_args(ap)
     args = ap.parse_args(argv)
+    multihost.initialize_from_args(args)  # before the model is built
     warm = tuple(int(v) for v in args.warmup.split("x")) if args.warmup else None
     server = create_server(args.host, args.port, max_batch=args.max_batch,
                            max_wait_ms=args.max_wait_ms, warmup_shape=warm,
@@ -567,8 +666,12 @@ def main(argv=None):
                            exported_path=args.exported, model=args.model,
                            quantize=args.quantize, session_ttl_s=args.session_ttl,
                            max_sessions=args.max_sessions, device=args.device)
-    host, port = server.server_address[:2]
-    print(f"serving on {host}:{port} ({server.batcher.runner.device})", flush=True)
+    if isinstance(server, FollowerServer):
+        print(f"rank {multihost.rank()}: following rank 0's batches ({server.runner.device})",
+              flush=True)
+    else:
+        host, port = server.server_address[:2]
+        print(f"serving on {host}:{port} ({server.batcher.runner.device})", flush=True)
     try:
         server.serve_forever()
     finally:

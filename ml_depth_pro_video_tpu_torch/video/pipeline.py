@@ -15,10 +15,16 @@ the host chain (``geometry="host"``), or the floor-plan program of
 plain floor plans only, its framing cached as ``floorplan_limits.json``
 beside the frames).
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: a multi-host run (A item 10), and ``parallel="dp"|"latency"``
-over more than one visible CUDA device (A item 10). With one device,
-``dp`` and ``latency`` run unsharded, as the JAX package does on one device.
+Across ranks (one process per card, ``parallel/multihost.py``) every rank
+runs the same call: the frames split over the ranks in dp batches
+(``DepthVideoRunner.depth_stream_multihost``), each rank runs the geometry
+of its own frames and writes their files, the ground plane is fitted once on
+rank 0 and broadcast, and each rank keeps its own
+``processing_progress.p<rank>.json`` (rank 0 the plain name; resume reads
+the union). ``parallel="latency"`` there becomes dp over the ranks, as the
+JAX package's pod path does. A single process runs unsharded whatever
+``parallel`` says: it drives one card (launch one rank per card to use
+more).
 """
 
 from __future__ import annotations
@@ -32,7 +38,6 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
 
 from ..geom.clean import clean_shadows, remove_stray_points
 from ..geom.device_floorplan import DeviceFloorplanSession
@@ -53,10 +58,9 @@ from ..geom.pointcloud import PointCloud
 from ..geom.render import save_render
 from ..geom.unproject import depth_to_3d
 from ..models.depth_pro import model_preset
+from ..parallel import multihost as mh
+from ..parallel.mesh import batch_sharding, make_mesh
 from .runner import DepthVideoRunner
-
-MULTIHOST_UNPORTED = ("multi-host runs are not ported to the PyTorch package yet: ROADMAP A "
-                      "item 10 (parallel/ on torch.distributed)")
 
 
 def frame_number(path: str) -> int | None:
@@ -191,9 +195,38 @@ def process_single_frame(
         return False, time.time() - t0
 
 
-def _is_multihost() -> bool:
-    return (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1)
+def _pod_ground(runner: DepthVideoRunner, first_path: str, frames_dir: str,
+                cached: dict | None) -> dict:
+    """The ground plane on every rank: rank 0's cached ``ground.json`` decides
+    for everyone; without one, frame 0 goes through the model on every rank
+    (a collective), rank 0 fits and saves the plane, and its success or
+    failure is broadcast before the values, so a failure raises on every
+    rank instead of stranding the others in the broadcast."""
+    if not mh.broadcast_from_primary(cached is not None):
+        if mh.is_primary():
+            print("Computing ground plane from first frame...")
+        first = None
+        for res in runner.depth_stream_multihost([first_path]):
+            first = res  # only the rank holding row 0 (rank 0) yields
+        err = None
+        if mh.is_primary():
+            try:
+                if first is None:
+                    raise RuntimeError("the ground frame did not land on rank 0")
+                cached = compute_ground_from_frame(first["depth"], first["focallength_px"])
+                save_ground_plane(cached, frames_dir)
+            except Exception as exc:  # noqa: BLE001 - re-raised on every rank just below
+                err = f"{type(exc).__name__}: {exc}"
+        err = mh.broadcast_json(err)
+        if err is not None:
+            raise RuntimeError(f"rank 0's ground fit failed (every rank stops): {err}")
+    vals = mh.broadcast_json({
+        "normal": np.asarray(cached["normal"], np.float64),
+        "d": float(cached["d"]),
+        "origin": np.asarray(cached["origin"], np.float64),
+    } if mh.is_primary() else None)
+    return {"normal": np.asarray(vals["normal"], np.float64), "d": float(vals["d"]),
+            "origin": np.asarray(vals["origin"], np.float64)}
 
 
 def process_images_to_floor_plans(
@@ -227,14 +260,16 @@ def process_images_to_floor_plans(
     device_subsample: int = 1,
     device="cuda",
 ):
-    """Process a frame directory into per-frame floor plans on one host.
+    """Process a frame directory into per-frame floor plans.
 
-    Returns the ``processing_progress.json`` record: {frame file name:
-    {"success": True, "timestamp": ...}} for every frame done so far.
-    ``device`` is the runner's (``cuda`` by default; ignored when
-    ``runner`` is given); ``geometry="device"`` runs its floor-plan
-    program on the runner's device, ``device_subsample`` its pixel
-    stride."""
+    Returns this rank's progress record: {frame file name: {"success":
+    True, "timestamp": ...}} for every frame done so far. ``device`` is the
+    runner's (``cuda`` by default; ignored when ``runner`` is given);
+    ``geometry="device"`` runs its floor-plan program on the runner's
+    device, ``device_subsample`` its pixel stride. Over several ranks
+    (``multihost.initialize`` first) every rank runs the same call on a
+    shared frames filesystem; SIGINT must reach every rank."""
+    pod = mh.world_size() > 1
     if geometry not in ("host", "device"):
         raise ValueError(f"geometry must be 'host' or 'device', got {geometry!r}")
     if geometry == "device" and (fit_shapes or visualize_3d):
@@ -244,8 +279,10 @@ def process_images_to_floor_plans(
             "--geometry device serves the plain floorplan path; "
             "shape fitting / 3D previews need the host cloud "
             "(drop --fit_shapes/--visualize_3d or use --geometry host)")
-    if _is_multihost():
-        raise NotImplementedError(MULTIHOST_UNPORTED)
+    if geometry == "device" and pod and (x_limits is None or z_limits is None):
+        raise ValueError(
+            "multi-host --geometry device needs explicit --x_limits/--z_limits (each rank "
+            "would otherwise frame its own first frame and the plans would not align)")
     output_dir = output_dir or frames_dir
     os.makedirs(output_dir, exist_ok=True)
 
@@ -259,10 +296,12 @@ def process_images_to_floor_plans(
         ]
     had_any = bool(image_paths)
 
-    # resume bookkeeping (processing_progress.json schema parity); the
-    # skip-completed filter reads every processing_progress*.json, so a
-    # progress file written by a JAX pod run is honoured too
-    progress_file = os.path.join(output_dir, "processing_progress.json")
+    # resume bookkeeping (processing_progress.json schema parity); each rank
+    # owns its own progress file (concurrent writes to one path would corrupt
+    # it) and the skip-completed filter reads the union of every
+    # processing_progress*.json, a JAX pod run's included
+    suffix = f".p{mh.rank()}" if pod and mh.rank() else ""
+    progress_file = os.path.join(output_dir, f"processing_progress{suffix}.json")
     completed: dict = {}
     if resume and not force_reprocess:
         all_done: dict = {}
@@ -277,24 +316,41 @@ def process_images_to_floor_plans(
             if pf == progress_file:
                 completed = data if data is not None else {}
         image_paths = [p for p in image_paths if os.path.basename(p) not in all_done]
+    if pod:
+        # the filtered list decides the row split, so every rank takes rank
+        # 0's view (a stale shared-filesystem read on one rank would desync
+        # the batches); frames_dir-relative, so that a --pattern with a
+        # directory component rejoins to the file on every rank
+        names = mh.broadcast_json([os.path.relpath(p, frames_dir) for p in image_paths])
+        image_paths = [os.path.join(frames_dir, n) for n in names]
+        had_any = bool(mh.broadcast_from_primary(had_any))
     if not image_paths:
         print("All frames already processed." if had_any else "No images to process")
         return completed
 
-    if runner is None and parallel in ("dp", "latency"):
-        cards = torch.cuda.device_count() if torch.device(device).type == "cuda" else 1
-        if cards > 1:
-            raise NotImplementedError(
-                f"--parallel {parallel} over {cards} CUDA devices is not ported to the "
-                "PyTorch package yet: ROADMAP A item 10; make one device visible "
-                "(CUDA_VISIBLE_DEVICES) or use --parallel none")
-        print(f"--parallel {parallel}: single device, running unsharded")
-        parallel = "none"
+    mesh = None
+    if pod and runner is None:
+        # over several ranks the frames split over them, whatever --parallel says
+        if parallel == "latency":
+            print("multi-host run: --parallel latency is single-host only; using pod-wide dp")
+        if temporal_smooth > 0.0:
+            raise ValueError("temporal_smooth is single-host only (frames interleave across "
+                             "ranks); run the depth-pro-smooth-torch post-pass "
+                             "(video/temporal.py::smooth_depth_files)")
+        if packed_fetch:
+            raise ValueError("packed_fetch is single-host only (ranks fetch only their own "
+                             "rows)")
+        mesh = make_mesh(tp=1)
+        batch_size = max(batch_size, mh.world_size())
+    elif runner is None and parallel in ("dp", "latency"):
+        print(f"--parallel {parallel}: single device, running unsharded (one rank drives one "
+              "card: launch one per card, e.g. torchrun --nproc_per_node N, to use more)")
     runner = runner or DepthVideoRunner(
         cfg=model_preset(model),
         precision="bf16" if half_precision else "fp32",
         batch_size=batch_size,
         downscale_factor=downscale_factor,
+        mesh=mesh,
         speed=speed,
         temporal_smooth=temporal_smooth,
         fetch_pack="u16" if packed_fetch else "none",
@@ -307,7 +363,9 @@ def process_images_to_floor_plans(
         # ground plane: load cached or compute once from the first frame
         first_result = None
         ground_model = load_ground_plane(frames_dir)
-        if ground_model is None:
+        if pod:
+            ground_model = _pod_ground(runner, image_paths[0], frames_dir, ground_model)
+        elif ground_model is None:
             print("Computing ground plane from first frame...")
             first_result = runner.infer_one(image_paths[0])
             ground_model = compute_ground_from_frame(
@@ -315,6 +373,14 @@ def process_images_to_floor_plans(
             save_ground_plane(ground_model, frames_dir)
 
         def result_stream():
+            if pod:
+                # this rank's rows only (frame 0 is inferred again: not worth a
+                # cross-rank shuffle of its result); the SIGINT flag goes into
+                # the stream, which resolves it over every rank per batch, so
+                # the loops below must not break on it per rank
+                yield from runner.depth_stream_multihost(image_paths,
+                                                         should_stop=lambda: stop["flag"])
+                return
             # reuse the ground-fit inference for frame 0 instead of running
             # it through the model a second time
             rest = image_paths
@@ -341,6 +407,10 @@ def process_images_to_floor_plans(
         t_start = time.time()
         n_done = 0
         total = len(image_paths)
+        if pod:
+            # this rank handles only its own rows: the ETA counts them
+            total = mh.local_item_count(batch_sharding(runner.mesh), runner.batch_size,
+                                        len(image_paths))
         # a worker pool only helps with cores to spare (GIL and memory
         # contention on one core), so clamp to the core count before
         # sizing the in-flight bound below
@@ -397,7 +467,7 @@ def process_images_to_floor_plans(
             with ThreadPoolExecutor(max_workers=num_workers) as pool:
                 futures = []
                 for result in result_stream():
-                    if stop["flag"]:
+                    if stop["flag"] and not pod:
                         break
                     inflight.acquire()
                     futures.append(pool.submit(handle, result))
@@ -411,7 +481,7 @@ def process_images_to_floor_plans(
                         fut.result()
         else:
             for result in result_stream():
-                if stop["flag"]:
+                if stop["flag"] and not pod:
                     print("Interrupted.")
                     break
                 inflight.acquire()

@@ -20,9 +20,14 @@ artifact's shape through a ``torch.export`` program (``ckpt/export.py``);
 on the card it currently builds and runs slower than eager code (a longer
 first batch from the artifact's load, and fewer frames/s: PERF.md,
 ROADMAP B8), so it pins the validated program rather than speeding it up.
-Options of the JAX runner that this port does not implement yet (meshes and
-latency parallelism: ROADMAP A item 10) raise ``NotImplementedError`` when
-set.
+
+Across ranks (``parallel/``, one process per device): with ``mesh=`` and
+``parallel="dp"`` every rank reads the same stream, computes its rows of
+each batch (``parallel/spmd.py``) and yields every frame after the gather;
+with ``parallel="latency"`` every rank computes each batch together with
+the others (``parallel/latency.py``). ``depth_stream_multihost`` is the pod
+stream: each rank decodes and yields only its own rows. Every rank calls
+the same method with the same items in the same order.
 """
 
 from __future__ import annotations
@@ -51,6 +56,10 @@ from ..models.depth_pro import (
     build_params,
     infer_fn,
 )
+from ..parallel import multihost
+from ..parallel.latency import make_latency_infer, make_sp_mesh
+from ..parallel.mesh import batch_sharding, round_batch_to_dp
+from ..parallel.spmd import make_dp_infer
 from ..utils.compile_cache import enable_compilation_cache
 from . import pack, temporal
 
@@ -118,11 +127,16 @@ class DepthVideoRunner:
                              f"got {decode_pool!r}")
         if not 0.0 <= float(temporal_smooth) < 1.0:
             raise ValueError(f"temporal_smooth must be in [0, 1), got {temporal_smooth}")
-        for name, is_set in (("mesh", mesh is not None), ("parallel='latency'", parallel != "dp")):
-            if is_set:
-                raise NotImplementedError(f"DepthVideoRunner({name}) is not ported to the "
-                                          "PyTorch runner yet: ROADMAP A item 10 (parallel/ on "
-                                          "torch.distributed)")
+        if exported_path is not None and mesh is not None and parallel != "dp":
+            raise ValueError("exported_path serves the single-device and dp-mesh paths; "
+                             "latency-parallel programs run eagerly")
+        if exported_path is not None and multihost.host_count() > 1:
+            # a host's ranks stand for the JAX package's one process over its chips
+            raise ValueError("exported_path is single-host only; ranks on several hosts run "
+                             "eagerly")
+        if mesh is not None and parallel == "dp":
+            # dispatch pads partial batches to batch_size anyway
+            batch_size = round_batch_to_dp(batch_size, mesh)
         if speed != "exact":
             cfg = apply_speed(cfg, speed)
         # inductor's FX-graph cache for compiled programs, as the JAX runner
@@ -135,7 +149,16 @@ class DepthVideoRunner:
         self.precision = resolve_precision(precision)
         self.batch_size = batch_size
         self.downscale_factor = downscale_factor
+        # "dp": frames split over the mesh's ranks (throughput); "latency":
+        # the model split over them (one stream's latency, best at batch 1)
+        self.mesh = mesh
+        self.parallel = parallel
         self.prefetch = prefetch
+        if mesh is not None and multihost.world_size() > 1 and max_retries:
+            # a retry on one rank alone would desync the others' collectives
+            LOGGER.info("runner over %d ranks: device errors are not retried",
+                        multihost.world_size())
+            max_retries = 0
         self.max_retries = max_retries
         if decode_workers is None:
             decode_workers = min(8, os.cpu_count() or 1)
@@ -157,21 +180,41 @@ class DepthVideoRunner:
         self._program = None
         self.exported_calls = 0
         if exported_path is not None:
+            # a dp-mesh runner serves the per-rank program of depth-pro-export-torch --dp N
             exported = load_exported(exported_path, cfg, self.precision, quantize=quantize,
-                                     n_devices=1, device=self.device)
+                                     n_devices=1 if mesh is None else mesh.size,
+                                     device=self.device)
             self._program = exported.module()
             self._exported_shape = tuple(user_inputs(exported)[-1].shape)
             self._eager_keys: set = set()
-            if self._exported_shape[0] != self.batch_size:
-                LOGGER.warning("exported artifact batch=%d but runner batch_size=%d: full "
-                               "batches will run eagerly instead of through the artifact "
-                               "(re-export with --batch_size %d)", self._exported_shape[0],
-                               self.batch_size, self.batch_size)
+            dp = 1 if mesh is None else mesh.shape["dp"]
+            if self._exported_shape[0] * dp != self.batch_size:
+                LOGGER.warning("exported artifact batch=%d per rank but runner batch_size=%d "
+                               "over dp=%d: full batches will run eagerly instead of through "
+                               "the artifact (re-export with --batch_size %d)",
+                               self._exported_shape[0], self.batch_size, dp, self.batch_size)
+        # the programs over the mesh's ranks: dp cuts the batch to this rank's
+        # rows and gathers the result; latency splits each forward (one
+        # program per value of derive_missing)
+        self._dp = self._latency = None
+        if mesh is not None and parallel == "dp":
+            self._dp = make_dp_infer(lambda _, x, f, mixed: self._forward(x, f, mixed), mesh, 2)
+        elif mesh is not None:
+            self._latency = {mixed: make_latency_infer(cfg, make_sp_mesh(mesh.ranks),
+                                                       self.precision, derive_missing=mixed)
+                             for mixed in (False, True)}
 
     # ------------------------------------------------------------------
     def _infer(self, xs: np.ndarray, f_arr: np.ndarray | None, mixed: bool) -> dict:
-        """Upload a uint8 batch, normalize on the device and queue the model.
-        Returns device tensors (the computation may still be running)."""
+        """The model on a whole uint8 batch: on this device, on this rank's rows
+        and gathered (dp mesh), or split over the ranks (latency). Returns
+        device tensors (the computation may still be running)."""
+        if self._dp is not None:
+            return self._dp(self.params, xs, f_arr, mixed)
+        return self._forward(xs, f_arr, mixed)
+
+    def _forward(self, xs: np.ndarray, f_arr: np.ndarray | None, mixed: bool) -> dict:
+        """Upload uint8 frames, normalize on the device and queue the model."""
         x = torch.from_numpy(xs)
         if self.device.type == "cuda":
             x = x.pin_memory().to(self.device, non_blocking=True)
@@ -191,6 +234,8 @@ class DepthVideoRunner:
         x = x.float() / 127.5 - 1.0
         f = None if f_arr is None else torch.from_numpy(f_arr).to(self.device)
         with torch.inference_mode():
+            if self._latency is not None:
+                return self._latency[mixed](self.params, x, f)
             return infer_fn(self.params, x, f, self.cfg, self.precision, derive_missing=mixed)
 
     def _post(self, out: dict, state, n: int):
@@ -421,6 +466,119 @@ class DepthVideoRunner:
         finally:
             stop.set()
             thread.join(timeout=10.0)
+
+    def depth_stream_multihost(self, items, should_stop=None) -> Iterator[dict]:
+        """The pod stream over the ranks (``parallel/multihost.py``).
+
+        Every rank calls this with the SAME ordered items (paths, (path,
+        f_px) or arrays) and consumes them one batch of ``batch_size`` at a
+        time; each rank decodes only its rows of each batch (a short tail
+        batch repeats its last item), runs them on its own device with no
+        collective, and yields only them, each with ``"index"``, its frame's
+        number in the stream. Frames without a focal length get it from the
+        FOV head.
+
+        Contract (raised): a dp mesh; one resolution for the whole stream
+        (ranks cannot see each other's frames to agree on a flush);
+        ``temporal_smooth`` off (frames interleave across ranks);
+        ``fetch_pack`` off. An unreadable frame becomes a zero frame, with a
+        warning, and is not yielded: its row stays, so the rows stay aligned
+        across ranks. ``should_stop`` (a callable, e.g. reading a SIGINT
+        flag) is polled once per batch and resolved over every rank
+        (``multihost.any_flag``): if any rank wants to stop, every rank stops
+        dispatching at the same batch and drains what it has in flight. A
+        rank must not break out of this generator on its own. A device error
+        raises (it is not retried). Single-process it yields every frame.
+        """
+        if self.mesh is None or self.parallel != "dp":
+            raise ValueError("multihost streaming requires a dp mesh")
+        if self.temporal_smooth > 0.0:
+            raise ValueError("temporal_smooth needs every frame in playback order on one "
+                             "rank; run the depth-pro-smooth-torch post-pass instead "
+                             "(video/temporal.py::smooth_depth_files)")
+        if self.fetch_pack != "none":
+            raise ValueError("fetch_pack is single-host only")
+        from concurrent.futures import ThreadPoolExecutor
+        from itertools import islice
+
+        it = iter(items)
+        size = self.batch_size
+        rows = multihost.local_rows(batch_sharding(self.mesh), (size,))
+        stream_shape = None
+
+        def load_isolated(item):
+            try:
+                return self._load_one(item)
+            except Exception as exc:  # noqa: BLE001 - zero-substituted, the rows stay aligned
+                LOGGER.warning("unreadable frame %r: zero-frame substitute (multihost rows "
+                               "must stay aligned): %s", item, exc)
+                return None
+
+        def decode(chunk, ex):
+            """This rank's rows of one batch of ``chunk`` (1 to ``size`` items)."""
+            nonlocal stream_shape
+            last = len(chunk) - 1
+            loaded = list(ex.map(load_isolated, (chunk[min(r, last)] for r in rows)))
+            shape = stream_shape
+            for entry in loaded:
+                if entry is not None:
+                    shape = entry[1].shape
+                    break
+            if shape is None:
+                # every local row of the first batch is unreadable: learn the
+                # shape from another item of the batch rather than strand the
+                # other ranks
+                tried = {min(r, last) for r in rows}
+                for i, item in enumerate(chunk):
+                    if i not in tried and (entry := load_isolated(item)) is not None:
+                        shape = entry[1].shape
+                        break
+            if shape is None:
+                raise ValueError("every frame of the first multihost batch is unreadable on "
+                                 "this rank (see the warnings above): the stream shape cannot "
+                                 "be established")
+            bad = {r for r, entry in zip(rows, loaded) if entry is None}
+            loaded = [(None, np.zeros(shape, np.uint8), None) if e is None else e
+                      for e in loaded]
+            xs = np.stack([x for _, x, _ in loaded])
+            if stream_shape is not None and xs.shape[1:] != stream_shape:
+                raise ValueError(f"multihost streams need one resolution; got {xs.shape[1:]} "
+                                 f"after {stream_shape}")
+            stream_shape = xs.shape[1:]
+            fs = np.asarray([np.nan if f is None else f for _, _, f in loaded], np.float32)
+            return [k for k, _, _ in loaded], [x for _, x, _ in loaded], xs, fs, bad, len(chunk)
+
+        def dispatch(g, decoded):
+            keys, imgs, xs, fs, bad, n_here = decoded
+            _, parts = self._post(self._forward(xs, fs, True), None, len(rows))
+            return g, keys, imgs, bad, n_here, self._start_fetch(parts)
+
+        def collect(flight):
+            g, keys, imgs, bad, n_here, (host, done) = flight
+            if done is not None:
+                done.synchronize()
+            depth, fl = (t.numpy() for t in host)
+            for i, r in enumerate(rows):
+                if r < n_here and r not in bad:  # not padding, not an unreadable frame
+                    yield {"key": keys[i], "index": g * size + r, "depth": depth[i],
+                           "focallength_px": float(fl[i]), "image": imgs[i]}
+
+        with ThreadPoolExecutor(self.decode_workers) as ex:
+            in_flight: deque = deque()
+            g = 0
+            while True:
+                # collective: every rank stops at the same batch or none does
+                if should_stop is not None and multihost.any_flag(bool(should_stop())):
+                    break
+                chunk = list(islice(it, size))
+                if not chunk:
+                    break
+                in_flight.append(dispatch(g, decode(chunk, ex)))
+                g += 1
+                while len(in_flight) > self.pipeline_depth:
+                    yield from collect(in_flight.popleft())
+            while in_flight:
+                yield from collect(in_flight.popleft())
 
     def infer_one(self, item) -> dict:
         for result in self.depth_stream([item]):

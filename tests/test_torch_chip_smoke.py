@@ -11,7 +11,9 @@ And the ``serve`` and ``quantize`` phases' arithmetic: the bytes the int8
 ViTs save, the launches per forward from ``/metrics``' batch count, the
 latency percentiles and the count of processes started. And the ``train``
 and ``export`` phases' launches per step and per forward, counted on meta
-tensors, and the gradient and state comparisons.
+tensors, and the gradient and state comparisons. And the ``parallel``
+phase's arithmetic: the patch split, the band rows and cuts, the kernel
+shapes it holds, and the deviation that tells a halo error from rounding.
 """
 
 import numpy as np
@@ -38,6 +40,8 @@ def _packed(b, s, heads, hd, dtype, with_bias):
     (70, 433, True, torch.bfloat16, 0.0742, "bytes"),
     (70, 289, True, torch.bfloat16, 0.0495, "bytes"),
     (70, 433, True, torch.float32, 0.8023, "operations"),
+    (18, 577, False, torch.bfloat16, 0.0254, "bytes"),  # the latency slice over 2 ranks
+    (18, 289, True, torch.bfloat16, 0.0127, "bytes"),
 ])
 def test_attention_bound_at_the_documented_shapes(b, s, with_bias, dtype, want_ms, want_by):
     flops = chip_smoke.attention_flops(b, 16, s, 64)
@@ -59,6 +63,20 @@ def test_resblock_bound_at_the_documented_shapes(hw, want_ms):
     flops = chip_smoke.resblock_flops(b, hw, hw, c)
     assert flops == 2 * 2.0 * b * hw * hw * 9 * c * c
     ms, by = chip_smoke.bound(flops, chip_smoke.nbytes(x, w, bias, w, bias, out), torch.bfloat16)
+    assert by == "operations"
+    assert round(ms, 4) == want_ms
+
+
+# K2 on the latency path's bands plus halo over 2 ranks, batch 1
+@pytest.mark.parametrize("shape,want_ms", [((1, 26, 48, 256), 0.0030),
+                                           ((1, 50, 96, 256), 0.0115)])
+def test_resblock_bound_on_the_latency_bands(shape, want_ms):
+    c = shape[-1]
+    x = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    w = torch.empty((3, 3, c, c), device="meta")
+    bias = torch.empty((c,), device="meta")
+    ms, by = chip_smoke.bound(chip_smoke.resblock_flops(*shape),
+                              chip_smoke.nbytes(x, w, bias, w, bias, x), torch.bfloat16)
     assert by == "operations"
     assert round(ms, 4) == want_ms
 
@@ -392,3 +410,151 @@ def test_states_equal_compares_every_part():
     s = state()
     s.opt_state.nu[0][0] = 1e-30
     assert not chip_smoke.states_equal(s, state())
+
+
+def test_parallel_phase_patch_split_and_attention_shapes():
+    """The latency path's padded patch split (35 patches over 2 ranks pad to
+    36, B*35 over 3 to a multiple of 3) and each rank's attention launches per
+    forward, whose sums are the one-device forward's."""
+    from ml_depth_pro_video_tpu_torch.models.depth_pro import apply_speed, model_preset
+
+    assert chip_smoke.patch_split(35, 2) == (36, 18)
+    assert chip_smoke.patch_split(35, 3) == (36, 12) and chip_smoke.patch_split(70, 3) == (72, 24)
+    large = model_preset("large")
+    assert chip_smoke.latency_shapes(large, 2) == {"K1 18x577x3072": 24, "K1 1x577x3072": 48}
+    assert chip_smoke.latency_shapes(large, 3, batch=2) == {"K1 24x577x3072": 24,
+                                                            "K1 2x577x3072": 48}
+    assert chip_smoke.latency_shapes(apply_speed(large, "fast"), 2) == {
+        "K1 18x577x3072": 2, "K3 18x289x3072": 22, "K1 1x577x3072": 48}
+    assert chip_smoke.latency_shapes(apply_speed(large, "balanced"), 2)["K3 18x433x3072"] == 22
+    for speed in ("exact", "fast"):
+        cfg = large if speed == "exact" else apply_speed(large, speed)
+        shapes = chip_smoke.latency_shapes(cfg, 2)
+        for kernel in ("K1", "K3"):
+            assert sum(v for k, v in shapes.items() if k.startswith(kernel)) == \
+                chip_smoke.PER_FORWARD[speed][kernel]
+
+
+def test_parallel_phase_band_rows_per_decoder_level():
+    """The 24 token-grid rows of the large preset split 12 / 12 over 2 ranks
+    and 8 / 8 / 8 over 3; a level k grids high holds k times that; K2 runs on
+    the two coarsest levels' bands plus two halo rows per neighbour."""
+    from ml_depth_pro_video_tpu_torch.models.depth_pro import model_preset, tiny_config
+
+    large = model_preset("large")
+    assert chip_smoke.band_rows(large, 2) == [[24, 48, 96, 192, 384]] * 2
+    assert chip_smoke.band_rows(large, 3) == [[16, 32, 64, 128, 256]] * 3
+    assert chip_smoke.band_rows(tiny_config(), 3) == [[6, 12, 24, 48, 96]] * 2 + [
+        [4, 8, 16, 32, 64]]
+    assert chip_smoke.k2_band_shapes(large, 2, 0) == [(1, 26, 48, 256), (1, 50, 96, 256),
+                                                      (1, 50, 96, 256)]
+    assert chip_smoke.k2_band_shapes(large, 3, 1) == [(1, 20, 48, 256), (1, 36, 96, 256),
+                                                      (1, 36, 96, 256)]
+
+
+def test_latency_forward_launches_per_rank_on_meta(monkeypatch):
+    """One latency forward of the large preset on rank 0 of 2, shapes only
+    (meta tensors, the collectives stubbed to return pieces of the ranks'
+    shapes): 24 K1 on the 18-patch slice, 24 on the image ViT's one patch
+    (the FOV ViT is off here), 3 K2 on the bands plus halo."""
+    from ml_depth_pro_video_tpu_torch.ckpt.params import init_depth_pro
+    from ml_depth_pro_video_tpu_torch.core.precision import Precision
+    from ml_depth_pro_video_tpu_torch.models import depth_pro as dp
+    from ml_depth_pro_video_tpu_torch.models import vit as vit_module
+    from ml_depth_pro_video_tpu_torch.ops import resblock
+    from ml_depth_pro_video_tpu_torch.parallel import latency
+    from ml_depth_pro_video_tpu_torch.parallel import multihost as mh
+
+    monkeypatch.setattr(mh, "world_size", lambda: 2)
+    monkeypatch.setattr(mh, "rank", lambda: 0)
+    monkeypatch.setattr(mh, "all_gather",
+                        lambda t, shapes=None: [t.new_empty(s) for s in shapes or [t.shape] * 2])
+    monkeypatch.setattr(mh, "exchange", lambda sends: {p: t.new_empty(t.shape)
+                                                       for p, t in sends.items()})
+    attn_shapes, k2 = {}, []
+    real_attn = vit_module.attention_packed
+
+    def attn(qkv, heads, key_bias=None):
+        key = f"{'K1' if key_bias is None else 'K3'} {'x'.join(map(str, qkv.shape))}"
+        attn_shapes[key] = attn_shapes.get(key, 0) + 1
+        return real_attn(qkv, heads, key_bias)
+
+    def fused(x, *args):
+        k2.append(tuple(x.shape))
+        return x
+
+    monkeypatch.setattr(vit_module, "attention_packed", attn)
+    monkeypatch.setattr(resblock, "fused_residual_block", fused)
+    cfg = dp.model_preset("large")
+    mesh = latency.make_sp_mesh()
+    params = init_depth_pro(cfg, torch.Generator().manual_seed(0), "meta")
+    x = torch.empty((1, cfg.img_size, cfg.img_size, 3), device="meta")
+    canonical, _ = dp.forward(params, x, cfg, Precision.bf16(), compute_fov=False,
+                              patch_vit_fn=latency._sharded_patch_vit(mesh, cfg, Precision.bf16()),
+                              rows=latency.RowBands(cfg.vit.grid_size, mesh))
+    assert tuple(canonical.shape) == (1, cfg.img_size, cfg.img_size, 1)
+    assert attn_shapes == {"K1 18x577x3072": 24, "K1 1x577x3072": 24}
+    assert k2 == chip_smoke.k2_band_shapes(cfg, 2, 0)
+
+
+def test_kernel_shapes_cover_the_parallel_path():
+    """Every shape the ``parallel`` phase's latency runs give K1, K3 and K2 on
+    each rank is among those the ``kernels`` phase holds against the plain
+    versions."""
+    from ml_depth_pro_video_tpu_torch.models.depth_pro import apply_speed, model_preset
+
+    large = model_preset(chip_smoke.PARALLEL_MODEL)
+    n = chip_smoke.PARALLEL_RANKS
+    held = {"K1": {s for s, _ in chip_smoke.K1_SHAPES}, "K3": {s for s, _ in chip_smoke.K3_SHAPES}}
+    for cfg in (large, apply_speed(large, "fast")):
+        for key in chip_smoke.latency_shapes(cfg, n):
+            kernel, dims = key.split()
+            assert tuple(map(int, dims.split("x"))) in held[kernel], key
+    for rank in range(n):
+        assert set(chip_smoke.k2_band_shapes(large, n, rank)) <= set(chip_smoke.K2_SHAPES)
+
+
+def test_band_cuts_and_the_deviation_locate_a_halo_error():
+    """The bands of the large preset meet at output row 540 of 1080 over 2
+    ranks (360 and 720 over 3). An error on the rows next to a cut crowds the
+    top 1% there and puts the max beside it; noise spread over the map does
+    neither."""
+    from ml_depth_pro_video_tpu_torch.models.depth_pro import model_preset
+
+    large = model_preset("large")
+    assert chip_smoke.band_cuts(large, 2, 1080) == [540.0]
+    assert chip_smoke.band_cuts(large, 3, 1080) == [360.0, 720.0]
+    window = chip_smoke.halo_window(large, 1080)
+    assert window == 45.0
+    rng = np.random.default_rng(0)
+    ref = rng.uniform(1.0, 10.0, (2, 1080, 64))
+    noisy = ref * (1 + rng.normal(0, 1e-3, ref.shape))
+    spread = chip_smoke.deviation(noisy, ref, [540.0], window)
+    assert 0.5 < spread["crowding"] < 1.5 and not spread["equal"]
+    assert spread["max_from_cut"] > 0
+    broken = noisy.copy()
+    broken[1, 536:544] *= 1.2
+    near = chip_smoke.deviation(broken, ref, [540.0], window)
+    assert near["max_from_cut"] < 4.5 and 536 <= near["max_row"] < 544
+    assert near["crowding"] > 5 and near["max"] > 10 * spread["max"]
+    assert chip_smoke.halo_fault(near) and not chip_smoke.halo_fault(spread)
+    assert chip_smoke.deviation(ref, ref, [540.0], window)["equal"]
+
+
+def test_zero_halo_control_zeroes_one_level_only(monkeypatch):
+    """The control's bands over 2 ranks (the exchange stubbed): at the chosen
+    width the neighbour's halo rows are zeros, at another width they are the
+    neighbour's rows."""
+    from ml_depth_pro_video_tpu_torch.parallel import latency
+    from ml_depth_pro_video_tpu_torch.parallel import multihost as mh
+
+    monkeypatch.setattr(mh, "world_size", lambda: 2)
+    monkeypatch.setattr(mh, "rank", lambda: 0)
+    monkeypatch.setattr(mh, "exchange", lambda sends: {p: torch.full_like(t, 7.0)
+                                                       for p, t in sends.items()})
+    bands = chip_smoke.zero_halo_bands(48)(24, latency.make_sp_mesh())
+    x = torch.ones((1, 24, 48, 4))
+    assert bands.extend(x, 2).shape == (1, 26, 48, 4)
+    assert bands.extend(x, 2)[:, -2:].eq(0).all() and bands.extend(x, 2)[:, :24].eq(1).all()
+    y = torch.ones((1, 48, 96, 4))
+    assert bands.extend(y, 2)[:, -2:].eq(7).all()

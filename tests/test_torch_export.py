@@ -195,10 +195,25 @@ def test_manifestless_artifact_refuses_the_wrong_weight_format(artifact, tmp_pat
 
 
 def test_multi_device_is_not_ported(artifact, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
-        E.main(["-o", str(tmp_path / "dp.pt2"), "--tiny", "--device", "cpu", "--dp", "2"])
-    with pytest.raises(ValueError, match="ROADMAP A item 10"):
+    """``--dp N``, which raised before it was ported: the per-rank program at
+    batch/N, the manifest pinning N, and a runner of another rank count
+    refused with the JAX package's wording (``tests/test_torch_multihost.py``
+    serves it over 2 ranks)."""
+    dp2 = str(tmp_path / "dp.pt2")
+    E.main(["-o", dp2, "--tiny", "--device", "cpu", "--dp", "2", "--batch_size", "4"])
+    with open(dp2 + ".json") as f:
+        m = json.load(f)
+    assert (m["nr_devices"], m["batch_size"]) == (2, 4)
+    assert tuple(E.user_inputs(E.load_exported(dp2, CFG, n_devices=2))[-1].shape) == (
+        2, CFG.img_size, CFG.img_size, 3)
+    with pytest.raises(ValueError, match="exported for 2 device\\(s\\) but the runner serves 1 "
+                                         "- re-export with no --dp"):
+        E.load_exported(dp2, CFG, n_devices=1)
+    with pytest.raises(ValueError, match="re-export with --dp 2"):
         E.load_exported(artifact, CFG, "fp32", n_devices=2)
+    with pytest.raises(ValueError, match="multiple of the mesh's dp=2"):
+        E.main(["-o", str(tmp_path / "odd.pt2"), "--tiny", "--device", "cpu", "--dp", "2",
+                "--batch_size", "3"])
 
 
 def test_main_writes_artifact_and_manifest(tmp_path, capsys):

@@ -155,10 +155,17 @@ def test_main_writes_maps_through_an_artifact(tmp_path, monkeypatch):
         assert np.array_equal(np.load(outs[0] / name)["depth"], np.load(outs[1] / name)["depth"])
 
 
-def test_main_refuses_what_is_not_ported(tmp_path):
+def test_main_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
+    """The multi-host flags, refused before they were ported: a group of one
+    rank joins nothing and writes every map (``tests/test_torch_multihost.py``
+    runs the CLI over 2 ranks); a video file still needs --video_out."""
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
     frames = _frames_dir(tmp_path / "frames", n=1)
-    with pytest.raises(SystemExit):  # no multi-host flags yet
-        tmaps.main([str(frames), "-o", str(tmp_path / "o"), "--coordinator_address", "x:1"])
+    tmaps.main([str(frames), "-o", str(tmp_path / "o"), "--model", "tiny", "--device", "cpu",
+                "--coordinator", "127.0.0.1:1", "--num_processes", "1", "--process_id", "0"])
+    assert "Successfully wrote 1/1" in capsys.readouterr().out
+    assert tmaps.multihost.cluster() is None
     with pytest.raises(SystemExit):  # a video file needs --video_out
         tmaps.main([str(tmp_path / "clip.mp4"), "-o", str(tmp_path / "o")])
 

@@ -10,7 +10,7 @@ and a floor-plan or preview PNG may differ in at most ``PNG_SHARE`` of its
 pixels (a few splats may move); the progress record has the same keys. Then
 the JAX package's pipeline tests of resume, the frame range, retrying a
 failed frame and the fast renderer run on the port, the CLI runs once, and
-the modes that are not ported yet raise with their ROADMAP item. With
+the multi-rank refusals and flags hold on one process. With
 ``geometry="device"`` (the floor-plan program on the runner's device, here
 the CPU) both packages' plans agree within ``PNG_SHARE`` and their
 ``floorplan_limits.json`` are equal.
@@ -257,23 +257,46 @@ def test_cli_decodes_a_video_first(port_runner, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234"],
                                   ["--num_processes", "2"], ["--process_id", "1"]])
-def test_cli_multihost_flags_raise(flag, frames_dir):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
-        cli_pipeline.main(["--frames_dir", frames_dir, *flag, "--device", "cpu"])
+def test_cli_multihost_flags_raise(flag, frames_dir, monkeypatch):
+    """The multi-host flags, which raised before they were ported: a group of
+    several ranks needs the coordinator and this rank's id (else the flags
+    raise before anything joins); a coordinator or a rank id alone, with no
+    rank count, is a single process that joins nothing
+    (``tests/test_torch_multihost.py`` runs the CLI over 2 ranks)."""
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    seen = []
+    monkeypatch.setattr(cli_pipeline, "process_images_to_floor_plans",
+                        lambda **kw: seen.append(kw))
+    argv = ["--frames_dir", frames_dir, *flag, "--device", "cpu"]
+    if flag[0] == "--num_processes":
+        with pytest.raises(ValueError, match="--coordinator host:port and --process_id"):
+            cli_pipeline.main(argv)
+        assert seen == []
+    else:
+        cli_pipeline.main(argv)
+        assert [kw["frames_dir"] for kw in seen] == [frames_dir]
+    assert cli_pipeline.multihost.cluster() is None
 
 
 def test_unported_modes_raise(port_runner, frames_dir, tmp_path, monkeypatch):
+    """An unknown geometry raises; over several ranks (which raised before
+    they were ported) the JAX package's pod refusals hold before anything is
+    inferred: ``temporal_smooth`` and ``packed_fetch`` (frames interleave
+    across ranks) and ``--geometry device`` without a fixed framing, and a
+    given runner without a dp mesh cannot stream the ranks' rows."""
     with pytest.raises(ValueError, match="geometry"):
         tpipeline.process_images_to_floor_plans(frames_dir, geometry="gpu", runner=port_runner)
-    for parallel in ("dp", "latency"):  # more than one visible card
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
-            tpipeline.process_images_to_floor_plans(frames_dir, output_dir=str(tmp_path),
-                                                    parallel=parallel, device="cuda")
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
-        tpipeline.process_images_to_floor_plans(frames_dir, runner=port_runner)
+    monkeypatch.setattr(tpipeline.mh, "world_size", lambda: 2)
+    out = str(tmp_path / "pod")
+    for kwargs, match in (({"temporal_smooth": 0.5}, "temporal_smooth is single-host"),
+                          ({"packed_fetch": True}, "packed_fetch is single-host"),
+                          ({"geometry": "device", "fit_shapes": False}, "explicit --x_limits")):
+        with pytest.raises(ValueError, match=match):
+            tpipeline.process_images_to_floor_plans(frames_dir, output_dir=out, device="cpu",
+                                                    **kwargs)
+    with pytest.raises(ValueError, match="dp mesh"):
+        tpipeline.process_images_to_floor_plans(frames_dir, output_dir=out, runner=port_runner)
     assert not os.path.exists(os.path.join(frames_dir, "ground.json"))
 
 

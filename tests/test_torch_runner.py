@@ -22,6 +22,7 @@ from ml_depth_pro_video_tpu_torch.ckpt.export import main as export_main
 from ml_depth_pro_video_tpu_torch.cli import run as cli_run
 from ml_depth_pro_video_tpu_torch.video import runner as runner_module
 from ml_depth_pro_video_tpu_torch.models.depth_pro import tiny_config
+from ml_depth_pro_video_tpu_torch.parallel.mesh import make_mesh
 from ml_depth_pro_video_tpu_torch.video.runner import DepthVideoRunner
 from torch_checkpoint import write_tiny_checkpoint
 
@@ -149,10 +150,20 @@ def test_runner_retries_device_errors_only(checkpoint, monkeypatch):
     assert len(calls) == 1  # deterministic failures are not retried
 
 
-@pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"parallel": "latency"}])
-def test_unported_runner_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 10 "):
-        DepthVideoRunner(cfg=tiny_config(), device="cpu", **kwargs)
+@pytest.mark.parametrize("kwargs", [{"parallel": "dp"}, {"parallel": "latency"}])
+def test_unported_runner_options_raise(kwargs, checkpoint):
+    """``mesh=`` with ``parallel="dp"`` and ``"latency"``, once the options of
+    ROADMAP A item 10 that raised: on a one-rank mesh both run the whole
+    batch on this process and equal the runner without a mesh bit for bit
+    (``tests/test_torch_parallel.py`` runs them over 2 and 3 ranks)."""
+    cfg = dataclasses.replace(tiny_config(), checkpoint_uri=checkpoint)
+    kw = dict(cfg=cfg, precision="fp32", batch_size=2, decode_workers=1, device="cpu")
+    meshed = DepthVideoRunner(mesh=make_mesh(), **kwargs, **kw)
+    frames = _frames(3)
+    for got, want in zip(meshed.depth_stream(frames), DepthVideoRunner(**kw).depth_stream(frames),
+                         strict=True):
+        assert np.array_equal(got["depth"], want["depth"])
+        assert got["focallength_px"] == want["focallength_px"]
 
 
 def test_runner_serves_exported_artifact(checkpoint, tmp_path, caplog):

@@ -446,10 +446,22 @@ def test_warmup_runs_one_canonical_full_batch():
 
 
 def test_unported_modes_raise(monkeypatch):
+    """The multi-device modes, which raised before they were ported: one rank
+    runs ``--parallel dp`` and ``latency`` unsharded (a rank drives one card
+    whatever the count, so two visible cards change nothing); several ranks
+    refuse ``--parallel none`` (``tests/test_torch_multihost.py`` serves over
+    2 ranks); an unknown mode raises."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    for parallel in ("dp", "latency"):  # more than one visible card
-        with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
-            create_server(port=0, model="tiny", parallel=parallel, device="cuda")
+    for parallel in ("dp", "latency"):
+        made = create_server(port=0, model="tiny", parallel=parallel, device="cpu",
+                             max_batch=1)
+        try:
+            assert made.batcher.runner.mesh is None
+        finally:
+            made.server_close()
+    monkeypatch.setattr(server.multihost, "world_size", lambda: 2)
+    with pytest.raises(ValueError, match="over 2 ranks pass --parallel dp or latency"):
+        create_server(port=0, model="tiny", parallel="none", device="cpu")
     with pytest.raises(ValueError, match="parallel"):
         create_server(port=0, model="tiny", parallel="tp", device="cpu")
 
