@@ -21,8 +21,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    and its operations over the card's peak for their type); the attention
    kernels' entries carry the fp32 (parity mode) reading at the same shape
    under ``fp32``, K1's the bf16 one at the image ViT's (2, 577, 3072)
-   under ``small_shape`` and at the latency path's patch slice (18, 577,
-   3072) under ``latency_shape`` (K3's at (18, 289, 3072) too), and K2's (2,
+   under ``small_shape``, at the latency path's patch slice (18, 577, 3072)
+   under ``latency_shape`` (K3's at (18, 289, 3072) too) and at the
+   ``train_parallel`` phase's shapes under ``dp_shape`` (35, 577, 3072),
+   ``tp_shape`` (70, 577, 1536, 8 heads) and ``pp_shape`` (14, 577, 3072),
+   and K2's (2,
    96, 96, 256) entry its (2, 48, 48, 256) reading there and the latency
    path's bands plus halo, (1, 26, 48, 256) and (1, 50, 96, 256), under
    ``latency_shape_26x48`` and ``latency_shape_50x96``; K2 is also timed
@@ -184,6 +187,33 @@ Phases (each prints its own lines; any failure exits non-zero):
    each rank's peak memory.
    Both ranks share the card's SMs: the numbers are the parallel machinery's
    overhead, not a speedup;
+8c. train_parallel: first ``fit`` on one rank (the reference below), then
+   two ranks on the one card over gloo, started as
+   ``chip_smoke.py --train-parallel-rank r port dir``, each building the
+   ``large`` params from seed 0 (the final head bias raised by 0.5) and
+   decoding the same global batch of 2 of 6 ``write_dataset`` pairs at
+   1536^2: the canonical maps of the one-rank forward and of dp, tp and pp
+   make the conditioned target (``conditioned_depth``); rank 0 takes the
+   one-rank step's loss and gradients and frees them from the card; then one
+   step (bf16 on fp32 masters, clipped AdamW) through the step that
+   ``make_train_step`` returns, of dp=2 (a row per rank), tp=2 (8 of 16 heads
+   per rank: K1 at (70, 577, 1536)) and pp=2 (12 blocks per stage, 5
+   microbatches: K1 at (14, 577, 3072)), each with its K1 shapes and
+   launches per rank per step checked (``train_parallel_shapes``; 3 K2); the
+   gradients the step hands to AdamW, gathered, held against the one-rank
+   step's with the ``train`` phase's comparator, and each leaf the mode
+   splits by its own norm; the global norm against the gathered gradient's
+   and the updated params against the one-rank AdamW on those gradients;
+   the leaves every rank holds whole, params and moments, equal on both;
+   s/step split into gradients and AdamW, the collectives' calls and
+   synchronised ms, and the peak memory per rank; the tp=2 state saved once
+   by rank 0 in the one-rank layout and restored, equal to the gathered state
+   and, re-cut, to each rank's bit for bit; last, ``fit`` over both ranks
+   (dp=2, fp32: 2 steps, a holdout of 2 validated in lock-step, a checkpoint
+   at the end, restored equal bit for bit), its losses and val_silog held
+   against the one-rank ``fit``'s, 96 K1 per step. Both ranks share
+   the card's SMs and their collectives go through host memory: the
+   machinery's cost, not a speedup;
 9. train: the plain backward of K1 at (70, 577, 3072) and of K2 at (2, 96,
    96, 256) timed beside their forwards; then ``fit`` (``train/loop.py``) at
    the ``large`` preset, bf16, 1536^2, batch 2, random weights from seed 0, on
@@ -247,6 +277,7 @@ from ml_depth_pro_video_tpu_torch.ckpt.convert import save_params
 from ml_depth_pro_video_tpu_torch.ckpt.export import export_infer, load_exported
 from ml_depth_pro_video_tpu_torch.ckpt.export import main as export_main
 from ml_depth_pro_video_tpu_torch.ckpt.params import (
+    _map_with_path,
     from_numpy_tree,
     init_depth_pro,
     load_params,
@@ -271,6 +302,7 @@ from ml_depth_pro_video_tpu_torch.models import vit as vit_module
 from ml_depth_pro_video_tpu_torch.models.depth_pro import (
     DepthProConfig,
     apply_speed,
+    build_params,
     forward,
     infer_fn,
     load_checkpoint,
@@ -329,10 +361,17 @@ from ml_depth_pro_video_tpu_torch.video.temporal import (
 SEED = 0
 BATCH = 2  # the slice's batch size: K1 sees (35*BATCH, 577, 3072) and (BATCH, 577, 3072)
 KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
-# slice shapes at batch 1 and at BATCH, then ragged ones; (2, 65, 192) with 2 heads is hd=32
+# slice shapes at batch 1 and at BATCH, the latency slice over 2 ranks, the train_parallel
+# phase's tp-local heads at BATCH (8 of 16 per rank) and its pp microbatch (70 patch rows / 5),
+# then ragged ones; (2, 65, 192) with 2 heads is hd=32
 K1_SHAPES = [((35 * BATCH, 577, 3072), 16), ((BATCH, 577, 3072), 16), ((35, 577, 3072), 16),
-             ((1, 577, 3072), 16), ((18, 577, 3072), 16), ((3, 33, 192), 4), ((2, 65, 384), 2),
-             ((2, 65, 192), 2)]
+             ((1, 577, 3072), 16), ((18, 577, 3072), 16), ((35 * BATCH, 577, 1536), 8),
+             ((BATCH, 577, 1536), 8), ((14, 577, 3072), 16), ((3, 33, 192), 4),
+             ((2, 65, 384), 2), ((2, 65, 192), 2)]
+# the report key of each further K1 shape timed in bf16 (the top level is (35 * BATCH, 577, 3072))
+K1_REPORT = {(BATCH, 577, 3072): "small_shape", (18, 577, 3072): "latency_shape",
+             (35, 577, 3072): "dp_shape", (35 * BATCH, 577, 1536): "tp_shape",
+             (14, 577, 3072): "pp_shape"}
 # the speed tiers' patch-ViT shapes (balanced keeps 433 of 577 tokens, fast 289) at BATCH
 # and at batch 1, the latency path's slice at fast over 2 ranks, then ragged ones
 K3_SHAPES = [((35 * BATCH, 433, 3072), 16), ((35 * BATCH, 289, 3072), 16),
@@ -437,6 +476,11 @@ DISTILL_FRAMES = 4  # labelled by a large teacher at BATCH: 2 forwards; the stud
 # bf16, batch 2, the trained params): the loss's relative difference, the flattened gradient's
 # relative L2 distance and cosine, on the well-conditioned pixels (conditioned_depth)
 TRAIN_LOSS_BOUND, TRAIN_GRAD_L2, TRAIN_GRAD_COS = 1e-2, 5e-2, 0.99
+# a step across ranks against the one-rank AdamW on the same gathered gradients: the global norm
+# relative to the gathered gradient's, and the params' largest difference (1e-2 of the lr: a
+# clip factor off by 2x moves the params whose clipped gradient sits near AdamW's eps by up to
+# half the lr; rounding leaves an ulp)
+TRAIN_NORM_REL, TRAIN_UPDATE_BOUND = 1e-4, 1e-6
 SILOG_EPS = 1e-6  # train/step.py::silog_loss's clamp of the canonical inverse depth
 # the tiny fp32 step: the card against the CPU, loss and every gradient leaf
 TINY_LOSS_RTOL, TINY_GRAD_RTOL, TINY_GRAD_ATOL = 1e-4, 1e-3, 1e-4
@@ -465,6 +509,22 @@ LATENCY_ENVELOPE = {"p99": 4.6e-3, "max": 1.09e-2}
 HALO_FAULT = {"max": 3e-2, "crowding": 3.0}
 LEVELS = (2, 4, 8, 16, 32)  # the decoder's levels in token grids: fused low-res .. finest
 DEPTH_CLAMP_INV = 1.0001e-4  # inverse depth at the runner's 1e4 m clamp (and a rounding above)
+TRAIN_PARALLEL_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train_parallel"
+TRAIN_PARALLEL_RANKS = 2  # one gloo group of 2 ranks on the one card
+# the pairs written: the steps' global batch is the first BATCH of them shuffled; fit holds out
+# TRAIN_PARALLEL_HOLDOUT and trains on the rest, a step per BATCH
+TRAIN_PARALLEL_PAIRS, TRAIN_PARALLEL_HOLDOUT = 6, 2
+# fp32, and the first update at the warmup's lr 0: from the random init AdamW's updates (near
+# sign(g)) move every param by the lr, LayerScale to 10x its init, and a second such update turns
+# the two runs' rounding into two trajectories (val_silog 3.662e-02 apart in bf16, 3.108e-01 in
+# fp32; PERF.md); one update keeps them within 2.1e-05 in fp32
+TRAIN_PARALLEL_FIT = dict(batch_size=BATCH, epochs=1, lr=1e-4, warmup_steps=1,
+                          holdout=TRAIN_PARALLEL_HOLDOUT, log_every=1, seed=SEED,
+                          precision=Precision.fp32())
+# one step of each on the global batch of BATCH: 1 row per rank, every row on half the heads,
+# the patch ViT's 24 blocks as 2 stages of 12 over 5 microbatches of 14 patch rows
+TRAIN_PARALLEL_MODES = {"dp": dict(dp=2), "tp": dict(tp=2), "pp": dict(pp=2, microbatches=5)}
+TRAIN_PARALLEL_TIMEOUT = 600  # seconds for the two ranks
 
 
 def log(msg: str) -> None:
@@ -621,14 +681,10 @@ def kernels_k1(g) -> dict:
                                       attention_flops(b, heads, s, d3 // 3 // heads),
                                       nbytes(qkv, got), dtype)
                 line += suffix
-                if shape[0] == 35 * BATCH:
+                if shape == (35 * BATCH, 577, 3072):
                     add_to_report(report, err, rel, times, shape, dtype)
-                elif dtype == torch.bfloat16 and shape[0] == BATCH:
-                    # the image and FOV ViTs' shape: 48 launches per forward
-                    report["small_shape"] = report_entry(err, rel, times, shape, dtype)
-                elif dtype == torch.bfloat16 and shape[0] == 18:
-                    # the latency path's patch slice over 2 ranks: 35 patches pad to 36
-                    report["latency_shape"] = report_entry(err, rel, times, shape, dtype)
+                elif dtype == torch.bfloat16 and shape in K1_REPORT:
+                    report[K1_REPORT[shape]] = report_entry(err, rel, times, shape, dtype)
             _check(f"K1 {dtype} {shape}", rel, ATTN_BOUNDS[dtype], line)
     # K4 is K1's kernel body read through other strides: the same bits
     qkv = torch.randn((35 * BATCH, 577, 3072), generator=g, device="cuda").bfloat16()
@@ -3088,6 +3144,441 @@ def phase_parallel(exact_fps: float) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# train_parallel: one training step across two ranks on the one card (dp, tp, pp)
+
+
+def train_parallel_rows(layout, n: int) -> slice:
+    """This rank's rows of an ``n``-row global batch under ``layout``."""
+    from ml_depth_pro_video_tpu_torch.parallel import multihost as mh
+    from ml_depth_pro_video_tpu_torch.parallel.mesh import batch_sharding
+
+    rows = mh.local_rows(batch_sharding(layout.mesh), (n,))
+    return slice(rows[0], rows[-1] + 1)
+
+
+def parallel_canonical(state, images, cfg) -> torch.Tensor:
+    """The canonical inverse depth of the whole batch through a step's sharded
+    params (no grad): tp and pp run their collectives, dp gathers the rows."""
+    from ml_depth_pro_video_tpu_torch.parallel.spmd import gather_rows
+    from ml_depth_pro_video_tpu_torch.train.step import canonical_map
+
+    lay = state.layout
+    rows = train_parallel_rows(lay, images.shape[0])
+    c = canonical_map(state.params, images[rows], cfg, Precision.bf16(), lay)
+    return gather_rows(c, lay.mesh) if rows.stop - rows.start < images.shape[0] else c
+
+
+def leaf_names(tree) -> list:
+    """The "/"-joined path of every leaf, in ``tree_leaves`` order."""
+    names: list = []
+    _map_with_path(lambda path, _: names.append("/".join(path)), tree)
+    return names
+
+
+def split_leaf_l2(got: list, ref: list, specs: list, names: list) -> tuple:
+    """(the worst relative L2 distance over the leaves a layout splits, that
+    leaf's name): each split leaf held by its own norm, which the whole
+    gradient's comparator cannot see (the ViT blocks' LayerScale of 1e-5 puts
+    a vanishing share of the gradient there). (0.0, None) when nothing is
+    split."""
+    worst, name = 0.0, None
+    for g, r, spec, n in zip(got, ref, specs, names):
+        if spec and g is not None:
+            rel = float(torch.linalg.vector_norm((g - r).double())
+                        / torch.linalg.vector_norm(r.double()))
+            if rel >= worst:
+                worst, name = rel, n
+    return worst, name
+
+
+def train_parallel_fit(folder: Path, cfg, dp: int | None) -> dict:
+    """``fit`` (``train/loop.py``) as a user calls it, 2 steps of the global
+    batch with a holdout, a metrics file and a checkpoint at the end: over
+    the group with ``dp``, else on one rank; the params it builds from the
+    seed have the head bias raised as the steps' have. Returns the metrics,
+    the steps' seconds and launches, and the seconds of the save."""
+    tag = "fit_dp" if dp else "fit_one"
+    steps, saves = [], []
+    metrics = folder / f"{tag}.jsonl"
+    real_build = loop_module.build_params
+
+    def build(*args, **kwargs):
+        # the final head bias raised by 0.5, as for the steps above: from the random init the
+        # head sits at its ReLU 0, where the loss's 1/c gradient is ill-conditioned
+        params = real_build(*args, **kwargs)
+        params["head"]["conv_out"]["b"] += 0.5
+        return params
+
+    loop_module.build_params = build
+    try:
+        with instrumented_fit(steps, saves):
+            state = loop_module.fit(str(folder / "data"), cfg, dp=dp, metrics_file=str(metrics),
+                                    checkpoint_dir=str(folder / tag) if dp else None,
+                                    device="cuda", **TRAIN_PARALLEL_FIT)
+    finally:
+        loop_module.build_params = real_build
+    out = {"steps": steps, "saves": saves, "state": state}
+    if metrics.exists():  # written by rank 0
+        out["metrics"] = [json.loads(line) for line in metrics.read_text().splitlines()]
+    return out
+
+
+def train_parallel_rank(rank: int, port: str, folder: Path) -> None:
+    """One rank of the ``train_parallel`` phase: the canonical maps of the
+    one-rank forward and of each mode, the conditioned target, the one-rank
+    step's loss and gradients (rank 0, the other rank waiting), then one step
+    of each mode through the step ``make_train_step`` returns, on the same
+    global batch: its gradients (taken where the step hands them to AdamW)
+    gathered and held against the one-rank step's, its clipped update held
+    against the one-rank AdamW on those gradients, a tp=2 checkpoint written
+    once and restored; then ``fit`` over the 2 ranks (dp=2), its checkpoint
+    restored. Results go to ``folder/rank<rank>.json``."""
+    from collections import Counter
+
+    from ml_depth_pro_video_tpu_torch.ckpt.checkpointing import save_train_state
+    from ml_depth_pro_video_tpu_torch.parallel import multihost as mh
+    from ml_depth_pro_video_tpu_torch.parallel.sharding import gather_leaf, gather_params
+
+    mh.initialize(f"127.0.0.1:{port}", TRAIN_PARALLEL_RANKS, rank, device="cuda")
+    cfg = model_preset("large")
+    params = build_params(cfg, "cuda", SEED)
+    # the final head bias raised by 0.5, as the train phase's comparison does: at random init
+    # most pixels sit at the head's ReLU 0, where the loss's 1/c gradient is ill-conditioned
+    params["head"]["conv_out"]["b"] += 0.5
+    names = leaf_names(params)
+    images, depth = next(DepthDataset(str(folder / "data"), cfg.img_size, seed=SEED).batches(
+        BATCH, device="cuda"))
+    res = {"rank": rank, "backend": mh.cluster().backend, "reason": mh.cluster().reason}
+    # K1's shapes, through the name the ViT looks up; the collectives' host time, synchronised
+    shapes, real_attn = Counter(), vit_module.attention_packed
+
+    def attn(qkv, heads, key_bias=None):
+        shapes[f"K1 {'x'.join(map(str, qkv.shape))}"] += 1
+        return real_attn(qkv, heads, key_bias)
+
+    comm, counting = {}, [True]  # counting off: a gather made only for a comparison
+
+    def timed_comm(name, fn):
+        def run(*args, **kwargs):
+            if not counting[0]:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            c = comm.setdefault(name, [0, 0.0])
+            c[0] += 1
+            c[1] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    vit_module.attention_packed = attn
+    for name in ("all_reduce", "all_gather", "transfer", "broadcast"):
+        setattr(mh, name, timed_comm(name, getattr(mh, name)))
+
+    # (1) every run's canonical map, for the pixels the comparator keeps
+    t0 = time.perf_counter()
+    maps = []
+    with torch.no_grad():
+        maps.append(forward(params, images, cfg, Precision.bf16(), compute_fov=False)[0][..., 0]
+                    .float())
+        for kw in TRAIN_PARALLEL_MODES.values():
+            state, _ = make_train_step(params, cfg, "cuda", precision=Precision.bf16(), **kw)
+            maps.append(parallel_canonical(state, images, cfg))
+            del state
+    target, left_out = conditioned_depth(depth, maps, TRAIN_GRAD_L2)
+    target = mh.broadcast(target, 0)  # rank 0's, exactly
+    res["left_out"], res["maps_s"] = left_out, time.perf_counter() - t0
+    del maps
+
+    # (2) the one-rank step's loss and gradients on rank 0, freed before the modes run
+    ref = None
+    if rank == 0:
+        one = map_tree(lambda t: t.detach().clone().requires_grad_(), params)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = value_and_grad(one, images, target, cfg, Precision.bf16())
+        torch.cuda.synchronize()
+        res["one_rank"] = {"s": time.perf_counter() - t0, "loss": float(loss),
+                           "peak_bytes": torch.cuda.max_memory_allocated()}
+        ref = [None if g is None else g.float().cpu() for g in grads]
+        del one, grads, loss
+        torch.cuda.empty_cache()
+    mh.barrier()
+
+    # (3) one step of each mode on the same global batch, through the returned step
+    for mode, kw in TRAIN_PARALLEL_MODES.items():
+        state, step = make_train_step(params, cfg, "cuda", lr=1e-4, precision=Precision.bf16(),
+                                      warmup_steps=0, **kw)
+        lay, optimizer = state.layout, step.keywords["optimizer"]
+        rows = train_parallel_rows(lay, BATCH)
+        x, t = images[rows], target[rows]
+        seen = {}
+
+        def update(grads, opt_state, local, layout, real=optimizer.update):
+            # where the step hands its gradients to AdamW: the gradients' time ends here; the
+            # gather for the comparison is left out of both times
+            torch.cuda.synchronize()
+            seen["grad_end"] = time.perf_counter()
+            seen["grad_peak"] = torch.cuda.max_memory_allocated()
+            counting[0] = False
+            seen["full"] = [None if g is None else gather_leaf(g, sp, layout.mesh).float().cpu()
+                            for g, sp in zip(grads, layout.leaf_specs)]
+            counting[0] = True
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()  # the gather's buffers are not the step's
+            seen["opt_start"] = time.perf_counter()
+            return real(grads, opt_state, local, layout)
+
+        def global_norm(norms, idx, real=lay.global_norm):
+            seen["norm"] = real(norms, idx)
+            return seen["norm"]
+
+        optimizer.update, lay.global_norm = update, global_norm
+        shapes.clear()
+        comm.clear()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, x, t)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = {"grad_s": seen["grad_end"] - t0, "optimizer_s": t1 - seen["opt_start"],
+               "launches": read_launches(), "shapes": dict(shapes),
+               "comm": {k: [n, ms] for k, (n, ms) in comm.items()}, "loss": float(loss),
+               "norm": float(seen["norm"]),
+               "peak_bytes": max(seen["grad_peak"], torch.cuda.max_memory_allocated())}
+        out["s"] = out["grad_s"] + out["optimizer_s"]
+        # the leaves every rank holds whole (every leaf under dp), params and both moments, equal
+        # on every rank after the step: a gradient summed over too few ranks shows here even
+        # where it hides in the comparators (AdamW's first update is near sign(g); mu is not)
+        opt_state, leaves = state.opt_state, tree_leaves(state.params)
+        whole_leaves = [i for i, sp in enumerate(lay.leaf_specs) if not sp]
+        sums = torch.stack([t.detach().double().sum() for i in whole_leaves
+                            for t in (leaves[i], opt_state.mu[i], opt_state.nu[i])])
+        pieces = mh.all_gather(sums)
+        out["replicated_equal"] = all(torch.equal(pieces[0], q) for q in pieces[1:])
+        del leaves, opt_state  # or the next mode's peak counts these moments
+        full = seen.pop("full")
+        stepped = gather_params(map_tree(lambda p: p.detach(), state.params), lay.mesh,
+                                specs=lay.specs, device="cpu")  # collective
+        if rank == 0:
+            out["l2"], out["cos"] = grad_agreement(full, ref)
+            out["split_l2"], out["split_leaf"] = split_leaf_l2(full, ref, lay.leaf_specs, names)
+            out["loss_rel"] = abs(out["loss"] - res["one_rank"]["loss"]) / abs(
+                res["one_rank"]["loss"])
+            # the one-rank AdamW (the same settings) on the gathered gradients, from the same params
+            have = [g for g in full if g is not None]
+            out["norm_rel"] = abs(out["norm"] / float(torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g.double()) for g in have]))) - 1)
+            one = map_tree(lambda p: p.detach().clone(), params)
+            opt = make_optimizer(1e-4, warmup_steps=0)
+            opt.update([None if g is None else g.cuda() for g in full], opt.init(one), one)
+            diffs = [float((a - b.cpu()).abs().max())
+                     for a, b in zip(tree_leaves(stepped), tree_leaves(one))]
+            moved = [float((a - b).abs().max())
+                     for a, b in zip(tree_leaves(one), tree_leaves(params))]
+            out["update_diff"], out["update_moved"] = max(diffs), max(moved)
+            del one, opt, have
+        del full, stepped
+        if mode == "tp":
+            # one checkpoint in the one-rank layout, rank 0 writing; a restore re-cut for tp=2
+            t0 = time.perf_counter()
+            whole = state.to_dict()
+            save_train_state(str(folder / "ckpt"), whole, 1)
+            out["save_s"] = time.perf_counter() - t0
+            if rank != 0:
+                del whole
+            t0 = time.perf_counter()
+            restored = restore_train_state(str(folder / "ckpt"), device="cpu")
+            out["restore_s"] = time.perf_counter() - t0
+            if rank == 0:
+                shapes_ok = [tuple(a.shape) for a in tree_leaves(restored["params"])] == [
+                    tuple(a.shape) for a in tree_leaves(params)]
+                out["one_rank_equal"] = shapes_ok and states_equal(
+                    TrainState.from_dict(restored), TrainState.from_dict(whole))
+                del whole
+            out["shard_equal"] = states_equal(TrainState.from_dict(restored, lay, "cuda"), state)
+            del restored
+        res[mode] = out
+        del state, step, optimizer, lay
+        torch.cuda.empty_cache()
+        mh.barrier()
+    del params, ref
+    torch.cuda.empty_cache()
+
+    # (4) fit over the two ranks: dp=2, its checkpoint restored against the gathered state
+    reset_launches()
+    fit = train_parallel_fit(folder, cfg, dp=TRAIN_PARALLEL_RANKS)
+    fit["launches"] = read_launches()
+    whole = fit.pop("state").to_dict()  # collective
+    if rank == 0:
+        restored = restore_train_state(str(folder / "fit_dp"), device="cpu")
+        fit["restored_equal"] = restored is not None and states_equal(
+            TrainState.from_dict(restored), TrainState.from_dict(whole))
+        del restored
+    del whole
+    res["fit"] = fit
+    (folder / f"rank{rank}.json").write_text(json.dumps(res))
+    mh.barrier()
+
+
+def train_parallel_shapes(cfg: DepthProConfig, mode: str, batch: int = BATCH) -> dict:
+    """{"K1 rows x tokens x width": launches} per rank per step of one mode:
+    each ViT block's forward and its recompute in the backward, the FOV ViT
+    off. dp: each rank's rows; tp: every row on half the heads; pp: the
+    patch ViT's blocks of one stage per microbatch, the image ViT whole."""
+    kw = TRAIN_PARALLEL_MODES[mode]
+    vit, n = cfg.vit, TRAIN_PARALLEL_RANKS
+    per = batch // kw.get("dp", 1)
+    width = 3 * vit.embed_dim // kw.get("tp", 1)
+    s = vit.num_tokens
+    if "pp" in kw:
+        m = kw["microbatches"]
+        return {f"K1 {35 * per // m}x{s}x{width}": 2 * m * vit.depth // n,
+                f"K1 {per}x{s}x{width}": 2 * vit.depth}
+    return {f"K1 {35 * per}x{s}x{width}": 2 * vit.depth, f"K1 {per}x{s}x{width}": 2 * vit.depth}
+
+
+def check_train_parallel(res: list, one_fit: dict, wall: float) -> dict:
+    """The parent's checks and lines of the ``train_parallel`` phase; returns
+    both ranks' launches over the three steps and the 2-rank ``fit``."""
+    cfg, n = model_preset("large"), TRAIN_PARALLEL_RANKS
+    one = res[0]["one_rank"]
+    log(f"[train_parallel] {n} ranks on one card, tensor collectives on {res[0]['backend']} "
+        f"({res[0]['reason']}); large, bf16 on fp32 masters, {cfg.img_size}^2, global batch "
+        f"{BATCH} of write_dataset pairs; the one-rank step on rank 0: loss {one['loss']:.6f}, "
+        f"{one['s']:.3f} s (loss + gradients, peak {one['peak_bytes']} bytes); "
+        f"{res[0]['left_out']:.6f} of pixels left out as ill-conditioned (the runs' canonical "
+        f"maps apart by more than {TRAIN_GRAD_L2:g}; maps {res[0]['maps_s']:.1f} s)")
+    total = {k: 0 for k in KERNELS}
+    for mode in TRAIN_PARALLEL_MODES:
+        want_shapes = train_parallel_shapes(cfg, mode)
+        want = {"K1": sum(want_shapes.values()), "K2": 3, "K3": 0, "K4": 0}
+        for r in res:
+            got = r[mode]
+            total.update({k: total[k] + got["launches"][k] for k in KERNELS})
+            if got["launches"] != want or got["shapes"] != want_shapes:
+                raise AssertionError(f"train_parallel {mode}: rank {r['rank']} launched "
+                                     f"{got['launches']} at {got['shapes']}, want {want} at "
+                                     f"{want_shapes}")
+        e = res[0][mode]
+        comm = {k: f"{c[0]} calls {c[1]:.1f} ms" for k, c in e["comm"].items()}
+        split = (f"worst split leaf {e['split_leaf']}: relative L2 {e['split_l2']:.3e} (bound "
+                 f"{TRAIN_GRAD_L2:g})" if e["split_leaf"] else "no leaf split")
+        log(f"[train_parallel] {mode} ({TRAIN_PARALLEL_MODES[mode]}): launches per rank per step "
+            f"{want} ({want_shapes}); loss {e['loss']:.6f}, relative difference "
+            f"{e['loss_rel']:.3e} (bound {TRAIN_LOSS_BOUND:g}); gradient against the one-rank "
+            f"step's: relative L2 {e['l2']:.3e} (bound {TRAIN_GRAD_L2:g}), cosine "
+            f"{e['cos']:.6f} (bound {TRAIN_GRAD_COS:g}), {split}; clipped AdamW (global norm "
+            f"{e['norm']:.6g}, clip 1, {e['norm_rel']:.2e} from the gathered gradient's; bound "
+            f"{TRAIN_NORM_REL:g}) against the one-rank AdamW on the gathered gradients: max |diff| "
+            f"{e['update_diff']:.3e} (bound {TRAIN_UPDATE_BOUND:g}) where the update moved a "
+            f"param by up to {e['update_moved']:.3e}; the whole leaves' params and moments equal on "
+            f"every rank: {e['replicated_equal']}; {e['s']:.3f} s/step through the step "
+            f"(gradients {e['grad_s']:.3f}, AdamW {e['optimizer_s']:.3f}; one step, the first "
+            f"of its mode), rank 0's collectives {comm} (host time, synchronised); peak memory "
+            f"per rank {[r[mode]['peak_bytes'] for r in res]} bytes; on {card()}")
+        if not (e["loss_rel"] <= TRAIN_LOSS_BOUND and e["l2"] <= TRAIN_GRAD_L2
+                and e["cos"] >= TRAIN_GRAD_COS and e["split_l2"] <= TRAIN_GRAD_L2
+                and e["norm_rel"] <= TRAIN_NORM_REL and e["update_diff"] <= TRAIN_UPDATE_BOUND
+                and e["update_moved"] > TRAIN_UPDATE_BOUND and e["replicated_equal"]):
+            raise AssertionError(f"train_parallel {mode}: loss {e['loss_rel']:.3e}, L2 "
+                                 f"{e['l2']:.3e}, cosine {e['cos']:.6f}, split leaf "
+                                 f"{e['split_l2']:.3e}, norm {e['norm_rel']:.2e}, update "
+                                 f"{e['update_diff']:.3e} of {e['update_moved']:.3e}, "
+                                 f"whole leaves equal {e['replicated_equal']}")
+    tp = res[0]["tp"]
+    log(f"[train_parallel] the tp=2 checkpoint: gathered and saved once by rank 0 in "
+        f"{tp['save_s']:.3f} s, restored in {tp['restore_s']:.3f} s; in the one-rank layout and "
+        f"equal to the gathered state bit for bit: {tp['one_rank_equal']}; re-cut for tp=2 and "
+        f"equal to each rank's state bit for bit: {[r['tp']['shard_equal'] for r in res]}")
+    if not (tp["one_rank_equal"] and all(r["tp"]["shard_equal"] for r in res)):
+        raise AssertionError("train_parallel: the tp=2 checkpoint did not restore bit for bit")
+    # fit over the 2 ranks (dp=2) against fit on one rank, in fp32 (K2 is bf16 only): per
+    # step, 96 K1 (each block's forward and its recompute); the validation's forward 48 K1
+    fits = [r["fit"] for r in res]
+    per_step = {"K1": 96, "K2": 0, "K3": 0, "K4": 0}
+    steps = (TRAIN_PARALLEL_PAIRS - TRAIN_PARALLEL_HOLDOUT) // BATCH
+    want = {"K1": steps * 96 + 48, "K2": 0, "K3": 0, "K4": 0}
+    for f in fits + [one_fit]:
+        if [s["launches"] for s in f["steps"]] != [per_step] * steps or f["launches"] != want:
+            raise AssertionError(f"train_parallel fit: launched {f['launches']}, per step "
+                                 f"{[s['launches'] for s in f['steps']]}, want {want}")
+    for f in fits:
+        total.update({k: total[k] + f["launches"][k] for k in KERNELS})
+    got, ref = fits[0]["metrics"], one_fit["metrics"]
+    losses = [(a.get("loss", a.get("val_silog")), b.get("loss", b.get("val_silog")))
+              for a, b in zip(got, ref)]
+    rel = max(abs(a - b) / abs(b) for a, b in losses)
+    log(f"[train_parallel] fit over {n} ranks (dp=2, depth-pro-train-torch's fit in fp32: global batch "
+        f"{BATCH}, {steps} steps, holdout {TRAIN_PARALLEL_HOLDOUT}, a checkpoint at the end) "
+        f"against fit on one rank: losses then val_silog {[a for a, _ in losses]} / "
+        f"{[b for _, b in losses]}, worst relative difference {rel:.3e} "
+        f"(bound {TRAIN_LOSS_BOUND:g}); launches per rank {want} ({per_step} per step); s per "
+        f"step {[round(s['s'], 4) for s in fits[0]['steps']]} / "
+        f"{[round(s['s'], 4) for s in one_fit['steps']]}; the checkpoint gathered and saved by "
+        f"rank 0 in {fits[0]['saves'][-1][1]:.3f} s, restored equal to the gathered state bit "
+        f"for bit: {fits[0]['restored_equal']}")
+    if not (len(got) == len(ref) == steps + 1 and [a["step"] for a in got] == [
+            b["step"] for b in ref] and rel <= TRAIN_LOSS_BOUND and fits[0]["restored_equal"]):
+        raise AssertionError(f"train_parallel fit: metrics {got} against {ref}, restored "
+                             f"{fits[0]['restored_equal']}")
+    log(f"[train_parallel] the phase took {wall:.1f} s; both ranks share the card's SMs and "
+        "their collectives go through host memory (gloo): the machinery's cost, not a speedup")
+    return total
+
+
+def phase_train_parallel() -> dict:
+    """``fit`` on one rank, then two ranks on the one card (gloo), each
+    running ``train_parallel_rank``: one step of dp=2, tp=2 and pp=2 at the
+    large preset, held against the one-rank step on the same global batch,
+    and ``fit`` over both, held against the one-rank ``fit``."""
+    shutil.rmtree(TRAIN_PARALLEL_DIR, ignore_errors=True)
+    write_dataset(str(TRAIN_PARALLEL_DIR / "data"), TRAIN_PARALLEL_PAIRS, seed=SEED, size=512)
+    reset_launches()
+    one_fit = train_parallel_fit(TRAIN_PARALLEL_DIR, model_preset("large"), dp=None)
+    one_fit["launches"] = read_launches()
+    del one_fit["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    logs = [open(TRAIN_PARALLEL_DIR / f"rank{r}.log", "w") for r in range(TRAIN_PARALLEL_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--train-parallel-rank", str(r), port, str(TRAIN_PARALLEL_DIR)],
+                              stdout=log, stderr=subprocess.STDOUT,
+                              cwd=str(Path(__file__).resolve().parent))
+             for r, log in enumerate(logs)]
+    try:
+        rcs = [p.wait(timeout=TRAIN_PARALLEL_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log_file in logs:
+            log_file.close()
+    wall = time.perf_counter() - t0
+    if any(rcs):
+        for r in range(TRAIN_PARALLEL_RANKS):
+            tail = (TRAIN_PARALLEL_DIR / f"rank{r}.log").read_text().splitlines()[-40:]
+            log(f"[train_parallel] rank {r} exited {rcs[r]}:\n" + "\n".join(tail))
+        raise AssertionError(f"train_parallel: the ranks exited {rcs}")
+    res = [json.loads((TRAIN_PARALLEL_DIR / f"rank{r}.json").read_text())
+           for r in range(TRAIN_PARALLEL_RANKS)]
+    total = check_train_parallel(res, one_fit, wall)
+    shutil.rmtree(TRAIN_PARALLEL_DIR)
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     device = phase_device()
@@ -3118,6 +3609,9 @@ def main() -> int:
     gc.collect()  # the earlier phases' runners: training needs tens of GB of its own
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    paths["train_parallel"] = phase_train_parallel()
+    log(f"[train_parallel] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     backward = plain_backward_ms()
     paths["train"] = phase_train()
     t1 = time.perf_counter()
@@ -3140,4 +3634,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of the parallel phase, started by it
         sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])))
+    if sys.argv[1:2] == ["--train-parallel-rank"]:  # a rank of the train_parallel phase
+        sys.exit(train_parallel_rank(int(sys.argv[2]), sys.argv[3], Path(sys.argv[4])))
     sys.exit(main())

@@ -8,6 +8,14 @@ A save writes into a temporary directory beside it and renames it into
 place, so a killed save never leaves a step that ``latest_step`` would
 report; the oldest steps beyond ``max_to_keep`` are deleted after it. Saving
 a step that is already the latest is a no-op (orbax raises there).
+
+A run over several ranks saves one checkpoint in the one-rank layout, as
+orbax saves the JAX package's global arrays: every rank gathers the state
+(``TrainState.to_dict``, collective) and calls :func:`save_train_state`, rank
+0 writes it, and every rank waits at a barrier until it has. A restore reads
+the one-rank state on every rank, and the caller cuts it for the mesh it
+runs on (``TrainState.from_dict(layout=)``), so a checkpoint of a tp or pp
+run restores into a one-rank run bit for bit, and the reverse.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ import shutil
 import tempfile
 
 import torch
+
+from ..parallel import multihost
 
 STATE_FILE = "state.pt"
 
@@ -34,7 +44,14 @@ def latest_step(directory: str) -> int | None:
 
 
 def save_train_state(directory: str, state: dict, step: int, max_to_keep: int = 3) -> None:
-    step = int(step)
+    """Write ``state`` as step ``step``; across ranks every rank calls this,
+    rank 0 writes and all wait until it has."""
+    if multihost.is_primary():
+        _save(directory, state, int(step), max_to_keep)
+    multihost.barrier("save_train_state")
+
+
+def _save(directory: str, state: dict, step: int, max_to_keep: int) -> None:
     if latest_step(directory) == step:
         return  # already saved
     os.makedirs(directory, exist_ok=True)

@@ -171,12 +171,14 @@ def _apply_upsample_block(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def encoder_apply(params: dict, x: torch.Tensor, cfg: DepthProConfig,
                   precision: Precision, remat: bool = False,
-                  patch_vit_fn=None) -> list[torch.Tensor]:
+                  patch_vit_fn=None, tp=None) -> list[torch.Tensor]:
     """Multi-resolution encoding. x: (B, 4p, 4p, 3). ``remat`` recomputes
     each block of the patch and image ViTs in the backward pass.
     ``patch_vit_fn(params, pyramid) -> (tokens, (h0, h1))`` replaces the
     35-patch backbone call: the latency path (``parallel/latency.py``) splits
-    the patch axis over the ranks there."""
+    the patch axis over the ranks there, the GPipe path
+    (``parallel/pipeline.py``) the blocks along depth. ``tp``: the ViTs'
+    blocks hold this rank's tensor-parallel shard (``models/vit.py``)."""
     vit_cfg = cfg.vit
     b = x.shape[0]
     p = vit_cfg.img_size
@@ -195,7 +197,7 @@ def encoder_apply(params: dict, x: torch.Tensor, cfg: DepthProConfig,
         tokens, (h0, h1) = vit_apply(params["patch_vit"], pyramid, vit_cfg, precision,
                                      capture_blocks=cfg.hook_block_ids,
                                      merge_ratio=cfg.token_merge_ratio,
-                                     merge_block=cfg.token_merge_block, remat=remat)
+                                     merge_block=cfg.token_merge_block, remat=remat, tp=tp)
     else:
         tokens, (h0, h1) = patch_vit_fn(params["patch_vit"], pyramid)
     n0, n1 = 25 * b, 9 * b
@@ -206,7 +208,7 @@ def encoder_apply(params: dict, x: torch.Tensor, cfg: DepthProConfig,
     x1_feat = merge_patches(feat[n0:n0 + n1], b, pad1)
     x2_feat = feat[n0 + n1:]
 
-    image_tokens, _ = vit_apply(params["image_vit"], x2, vit_cfg, precision, remat=remat)
+    image_tokens, _ = vit_apply(params["image_vit"], x2, vit_cfg, precision, remat=remat, tp=tp)
     global_feat = tokens_to_grid(image_tokens, g)
 
     latent0 = _apply_upsample_block(params["upsample_latent0"], latent0)
@@ -312,14 +314,14 @@ def fold_head_params(params: dict) -> dict:
 
 
 def fov_apply(params: dict, x: torch.Tensor, lowres: torch.Tensor, cfg: DepthProConfig,
-              precision: Precision) -> torch.Tensor:
+              precision: Precision, tp=None) -> torch.Tensor:
     """FOV estimation: quarter-res image through a third ViT, projected
     tokens summed with downsampled decoder features, then a strided conv
     stack to one value in degrees per image. Computes in fp32 after the ViT."""
     vit_cfg = cfg.vit
     p, g = vit_cfg.img_size, vit_cfg.grid_size
     x = resize2d(x.to(precision.compute_dtype), (p, p))
-    tokens, _ = vit_apply(params["vit"], x, vit_cfg, precision)
+    tokens, _ = vit_apply(params["vit"], x, vit_cfg, precision, tp=tp)
     t = linear(tokens.float(), params["proj"]["w"], params["proj"]["b"])
     t = t[:, 1:, :].reshape(t.shape[0], g, g, -1)
 
@@ -335,7 +337,7 @@ def fov_apply(params: dict, x: torch.Tensor, lowres: torch.Tensor, cfg: DepthPro
 
 def forward(params: dict, x: torch.Tensor, cfg: DepthProConfig,
             precision: Precision = Precision.fp32(), compute_fov: bool = True,
-            remat: bool = False, patch_vit_fn=None, rows=None):
+            remat: bool = False, patch_vit_fn=None, rows=None, tp=None):
     """(B, img, img, 3) -> (canonical inverse depth (B, img, img, 1),
     fov_deg (B,) or None). ``compute_fov=False`` skips the third ViT;
     ``remat=True`` recomputes the encoder ViTs' blocks in the backward pass
@@ -346,11 +348,12 @@ def forward(params: dict, x: torch.Tensor, cfg: DepthProConfig,
     ``constrain``): the former replaces the 35-patch backbone call, the
     latter runs the decoder and the head on this rank's band of rows, with
     the neighbours' halo rows exchanged before every 3x3 conv, and gathers
-    the bands of the result."""
+    the bands of the result. ``tp`` (``parallel/sharding.py::TensorParallel``):
+    the ViTs' blocks hold this rank's tensor-parallel shard."""
     if x.shape[1] != cfg.img_size or x.shape[2] != cfg.img_size:
         raise ValueError(f"forward expects {cfg.img_size}x{cfg.img_size} input, got "
                          f"{tuple(x.shape)}; use infer_fn() for arbitrary sizes")
-    encodings = encoder_apply(params["encoder"], x, cfg, precision, remat, patch_vit_fn)
+    encodings = encoder_apply(params["encoder"], x, cfg, precision, remat, patch_vit_fn, tp)
     if rows is not None:
         encodings = [rows.take(e) for e in encodings]
     features, lowres = decoder_apply(params["decoder"], encodings, rows)
@@ -361,7 +364,7 @@ def forward(params: dict, x: torch.Tensor, cfg: DepthProConfig,
     if cfg.use_fov_head and compute_fov:
         if rows is not None:
             lowres = rows.gather(lowres)
-        fov_deg = fov_apply(params["fov"], x, lowres, cfg, precision)
+        fov_deg = fov_apply(params["fov"], x, lowres, cfg, precision, tp)
     return canonical, fov_deg
 
 

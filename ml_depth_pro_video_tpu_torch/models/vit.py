@@ -13,6 +13,12 @@ after a ToMe token merge, which carry the merged tokens' log sizes as a
 per-key score bias (``compute_token_merge``, the speed tiers). The block
 matmul weights may be int8 codes with per-channel scales
 (``ckpt/quantize.py``), dequantized to the compute dtype per matmul.
+
+Under tensor parallelism (``tp``, a ``parallel/sharding.py::TensorParallel``
+passed down ``vit_apply`` -> ``_run_blocks`` -> ``_block``) a block runs on
+the rank's shard: the qkv and fc1 columns and the proj and fc2 rows, with
+``num_heads // tp`` heads, *copy to tp* before the column GEMMs and *reduce
+from tp* after the row GEMMs, whose bias is added once, after the sum.
 """
 
 from __future__ import annotations
@@ -80,6 +86,17 @@ def _dense(x: torch.Tensor, w, b: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def _dense_rows(x: torch.Tensor, w, b: torch.Tensor, tp=None) -> torch.Tensor:
+    """``_dense`` of a row-split weight: under ``tp`` the partial products are
+    summed over the tp group (*reduce from tp*) and the bias is added once,
+    after the sum, not inside each rank's GEMM."""
+    if tp is None:
+        return _dense(x, w, b)
+    w = materialize_weight(w, x.dtype)
+    y = (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1], w.shape[-1])
+    return tp.reduce(y) + b.to(x.dtype)
+
+
 def _unstack(blocks: dict, depth: int) -> list[dict]:
     """Per-block views of the stacked block params (a leaf may be a
     ``{'q', 's'}`` dict). One ``unbind`` per leaf: under autograd its
@@ -93,31 +110,38 @@ def _unstack(blocks: dict, depth: int) -> list[dict]:
 
 
 def _block(x: torch.Tensor, bp: dict, cfg: ViTConfig,
-           key_bias: torch.Tensor | None = None) -> torch.Tensor:
+           key_bias: torch.Tensor | None = None, tp=None) -> torch.Tensor:
     cdt = x.dtype
+    heads = cfg.num_heads if tp is None else cfg.num_heads // tp.size
     h = layer_norm(x, bp["ln1_g"], bp["ln1_b"], cfg.layer_norm_eps)
-    attn = attention_packed(_dense(h, bp["qkv_w"], bp["qkv_b"]), cfg.num_heads, key_bias)
-    x = torch.addcmul(x, bp["ls1"].to(cdt), _dense(attn, bp["proj_w"], bp["proj_b"]))
+    if tp is not None:
+        h = tp.copy(h)
+    attn = attention_packed(_dense(h, bp["qkv_w"], bp["qkv_b"]), heads, key_bias)
+    x = torch.addcmul(x, bp["ls1"].to(cdt), _dense_rows(attn, bp["proj_w"], bp["proj_b"], tp))
 
     h = layer_norm(x, bp["ln2_g"], bp["ln2_b"], cfg.layer_norm_eps)
+    if tp is not None:
+        h = tp.copy(h)
     h = F.gelu(_dense(h, bp["fc1_w"], bp["fc1_b"]))
-    return torch.addcmul(x, bp["ls2"].to(cdt), _dense(h, bp["fc2_w"], bp["fc2_b"]))
+    return torch.addcmul(x, bp["ls2"].to(cdt), _dense_rows(h, bp["fc2_w"], bp["fc2_b"], tp))
 
 
 def _run_blocks(x: torch.Tensor, layers: list, lo: int, hi: int, cfg: ViTConfig,
-                key_bias: torch.Tensor | None = None, remat: bool = False) -> torch.Tensor:
+                key_bias: torch.Tensor | None = None, remat: bool = False,
+                tp=None) -> torch.Tensor:
     """Blocks [lo, hi) of ``layers`` (``_unstack``'s per-block params);
     ``key_bias`` (B, S) is the per-key score bias of every block in the
     segment (ToMe proportional attention). ``remat`` keeps only each
     block's input for the backward pass and runs the block again there
     (its kernels included); a block draws no random numbers, so no RNG
-    state is saved."""
+    state is saved. Under ``tp`` the recomputed block issues its sums over
+    the tp group again, in the backward, at the same point on every rank."""
     for i in range(lo, hi):
         if remat:
-            x = checkpoint(_block, x, layers[i], cfg, key_bias, use_reentrant=False,
+            x = checkpoint(_block, x, layers[i], cfg, key_bias, tp, use_reentrant=False,
                            preserve_rng_state=False)
         else:
-            x = _block(x, layers[i], cfg, key_bias)
+            x = _block(x, layers[i], cfg, key_bias, tp)
     return x
 
 
@@ -190,12 +214,22 @@ def unmerge_tokens(tokens: torch.Tensor, gmap: torch.Tensor) -> torch.Tensor:
     return torch.gather(tokens, 1, gmap[..., None].expand(-1, -1, tokens.shape[-1]))
 
 
+def embed_tokens(params: dict, x: torch.Tensor, cfg: ViTConfig,
+                 precision: Precision = Precision.fp32()) -> torch.Tensor:
+    """The tokens before the first block: patch embed, cls token, pos embed."""
+    cdt = precision.compute_dtype
+    tokens = _dense(patchify(x.to(cdt), cfg.patch_size), params["patch_embed"]["w"],
+                    params["patch_embed"]["b"])
+    cls = params["cls_token"].to(cdt).expand(x.shape[0], 1, cfg.embed_dim)
+    return torch.cat([cls, tokens], dim=1) + params["pos_embed"].to(cdt)
+
+
 def vit_apply(params: dict, x: torch.Tensor, cfg: ViTConfig,
               precision: Precision = Precision.fp32(),
               capture_blocks: Sequence[int] = (),
               merge_ratio: float = 0.0,
               merge_block: int = 2,
-              remat: bool = False) -> tuple[torch.Tensor, list[torch.Tensor]]:
+              remat: bool = False, tp=None) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """x: (B, img, img, 3) normalized NHWC. Returns (final tokens after the
     last LayerNorm, [outputs of the blocks in ``capture_blocks``, in sorted
     order]), each (B, 1+G*G, D).
@@ -206,14 +240,10 @@ def vit_apply(params: dict, x: torch.Tensor, cfg: ViTConfig,
     sizes as key bias; captures and the final tokens are unmerged back to
     full length. A ratio too small to merge one token changes nothing, and
     a merge point at or after the last block is skipped. ``remat=True``
-    recomputes each block in the backward pass (training at 1536 px)."""
-    cdt = precision.compute_dtype
-    b = x.shape[0]
-    tokens = _dense(patchify(x.to(cdt), cfg.patch_size), params["patch_embed"]["w"],
-                    params["patch_embed"]["b"])
-    cls = params["cls_token"].to(cdt).expand(b, 1, cfg.embed_dim)
-    tokens = torch.cat([cls, tokens], dim=1) + params["pos_embed"].to(cdt)
-
+    recomputes each block in the backward pass (training at 1536 px).
+    ``tp`` (a ``parallel/sharding.py::TensorParallel``): the blocks hold
+    this rank's tensor-parallel shard."""
+    tokens = embed_tokens(params, x, cfg, precision)
     blocks = _unstack(params["blocks"], cfg.depth)
     captures = []
     gmap = key_bias = None
@@ -227,19 +257,19 @@ def vit_apply(params: dict, x: torch.Tensor, cfg: ViTConfig,
     merge_pending = mb is not None and mb < cfg.depth
     for idx in sorted(capture_blocks):
         if merge_pending and mb <= idx:
-            tokens = _run_blocks(tokens, blocks, lo, mb, cfg, remat=remat)
+            tokens = _run_blocks(tokens, blocks, lo, mb, cfg, remat=remat, tp=tp)
             lo = mb
             tokens, gmap, key_bias = merge_now(tokens)
             merge_pending = False
-        tokens = _run_blocks(tokens, blocks, lo, idx + 1, cfg, key_bias, remat)
+        tokens = _run_blocks(tokens, blocks, lo, idx + 1, cfg, key_bias, remat, tp)
         captures.append(unmerge_tokens(tokens, gmap) if gmap is not None else tokens)
         lo = idx + 1
     if merge_pending and max(mb, lo) < cfg.depth:
         mb = max(mb, lo)
-        tokens = _run_blocks(tokens, blocks, lo, mb, cfg, remat=remat)
+        tokens = _run_blocks(tokens, blocks, lo, mb, cfg, remat=remat, tp=tp)
         lo = mb
         tokens, gmap, key_bias = merge_now(tokens)
-    tokens = _run_blocks(tokens, blocks, lo, cfg.depth, cfg, key_bias, remat)
+    tokens = _run_blocks(tokens, blocks, lo, cfg.depth, cfg, key_bias, remat, tp)
 
     tokens = layer_norm(tokens, params["norm"]["g"], params["norm"]["b"], cfg.layer_norm_eps)
     if gmap is not None:

@@ -3,10 +3,13 @@
 A JAX mesh lays devices out on named axes; here a mesh lays the ranks of
 the process group out the same way, one rank per device
 (``parallel/multihost.py``). Frames are data-parallel over ``dp``; ``tp``
-replicates them (tensor parallelism is the training half, not ported yet).
-A :class:`Sharding` says which rows of a batch each rank holds: split over
-``dp`` in contiguous blocks (:func:`batch_sharding`), or all of them
-(:func:`replicated`).
+replicates them and splits the ViT blocks' matmul weights
+(``parallel/sharding.py``); a (dp, pp) mesh (``parallel/pipeline.py``)
+splits the patch ViT's blocks along depth over ``pp``. A :class:`Sharding`
+says which rows of a batch each rank holds: split over ``dp`` in contiguous
+blocks (:func:`batch_sharding`), or all of them (:func:`replicated`).
+:func:`with_groups` gives a mesh the process groups of its axes, which the
+training collectives run on.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import dataclasses
 import logging
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from . import multihost
 
@@ -27,6 +32,7 @@ class Mesh:
 
     grid: np.ndarray
     axis_names: tuple
+    groups: dict = dataclasses.field(default_factory=dict)  # axis -> AxisGroup (with_groups)
 
     @property
     def shape(self) -> dict:
@@ -44,6 +50,52 @@ class Mesh:
         """The rank's coordinate on the mesh, or None when it is not on it."""
         hit = np.argwhere(self.grid == rank)
         return None if len(hit) == 0 else tuple(int(i) for i in hit[0])
+
+    def group(self, axis: str) -> "AxisGroup | None":
+        """This rank's group along ``axis`` (:func:`with_groups`), or None where
+        the axis has one rank or the mesh has no groups."""
+        return self.groups.get(axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """The ranks that share this rank's coordinates on every axis but one:
+    their process group, the ranks in axis order, and this rank's index."""
+
+    group: object
+    ranks: tuple
+    index: int
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+def with_groups(mesh: Mesh) -> Mesh:
+    """The mesh with a process group per axis line, for every axis longer
+    than one rank. ``dist.new_group`` is collective: every rank of the group
+    calls this with the same mesh and creates every line's group, in the same
+    order, keeping its own. The groups take the tensor collectives' backend
+    (``multihost.cluster``); one all_reduce on each of this rank's groups
+    sets their communicators up before the first point-to-point step. A
+    single process has no groups."""
+    c = multihost.cluster()
+    if c is None:
+        return mesh
+    me = multihost.rank()
+    groups = {}
+    for a, name in enumerate(mesh.axis_names):
+        if mesh.grid.shape[a] == 1:
+            continue
+        for line in np.moveaxis(mesh.grid, a, -1).reshape(-1, mesh.grid.shape[a]):
+            ranks = tuple(int(r) for r in line)
+            group = dist.new_group(sorted(ranks), backend=c.backend)
+            if me in ranks:
+                groups[name] = AxisGroup(group, ranks, ranks.index(me))
+    device = torch.device("cuda", torch.cuda.current_device()) if c.backend == "nccl" else "cpu"
+    for g in [None, *(ag.group for ag in groups.values())]:
+        multihost.all_reduce(torch.zeros(1, device=device), g)
+    return dataclasses.replace(mesh, groups=groups)
 
 
 def make_mesh(dp: int | None = None, tp: int = 1, ranks=None) -> Mesh:

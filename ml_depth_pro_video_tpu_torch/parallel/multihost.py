@@ -14,12 +14,15 @@ calls a pod (``jax.process_count() > 1``) is a group of more than one rank.
   of its own, ``gloo`` where ranks share a card (NCCL refuses two ranks on
   one device) or compute on the CPU. Host objects (file lists, the ground
   plane, stop flags) always travel over the gloo group.
-- :func:`all_gather` is the one collective of tensors and :func:`exchange`
-  the one point-to-point step (a rank and its neighbours), both on the
-  tensors' device; the compute stays on the card. gloo's all_gather takes
-  CUDA tensors itself and stages them through host memory; gloo's send and
-  recv take host memory only, so :func:`exchange` always stages CUDA tensors
-  through pinned host buffers under gloo.
+- The collectives of tensors, each over the whole group or a process group
+  of a mesh axis (``parallel/mesh.py::with_groups``), on the tensors'
+  device, the compute staying on the card: :func:`all_gather`,
+  :func:`all_reduce` (a sum) and :func:`broadcast`; the point-to-point
+  steps :func:`transfer` (sends to some ranks, receives from others) and
+  :func:`exchange` (a rank and its neighbours). gloo's all_gather takes CUDA
+  tensors itself and stages them through host memory; for the others gloo
+  is given pinned host copies of CUDA tensors (its send and recv take host
+  memory only), and its sums of bf16 or fp16 run in fp32.
 - :func:`rows_for_process` / :func:`local_rows` / :func:`local_item_count`
   / :func:`local_output`: the rows of a dp-split batch that a rank holds.
 - :func:`is_primary`, :func:`barrier`, :func:`any_flag`,
@@ -210,14 +213,20 @@ def local_output(local: torch.Tensor, sharding, global_rows: int) -> tuple[np.nd
     return local.cpu().numpy(), local_rows(sharding, (global_rows,))
 
 
-def all_gather(t: torch.Tensor, shapes=None) -> list[torch.Tensor]:
-    """Every rank's ``t``, in rank order, on ``t``'s device. ``shapes`` gives
-    every rank's shape where they differ (each is padded to the largest and
-    trimmed back); by default they all have ``t``'s."""
+def _group(group):
+    return _CLUSTER.compute_group if group is None else group
+
+
+def all_gather(t: torch.Tensor, shapes=None, group=None) -> list[torch.Tensor]:
+    """Every member's ``t``, in rank order, on ``t``'s device; ``group`` is a
+    process group of a mesh axis (the whole group by default). ``shapes``
+    gives every member's shape where they differ (each is padded to the
+    largest and trimmed back); by default they all have ``t``'s."""
     if _CLUSTER is None:
         return [t]
-    c = _CLUSTER
-    shapes = [tuple(t.shape)] * c.world if shapes is None else [tuple(s) for s in shapes]
+    g = _group(group)
+    size = dist.get_world_size(g)
+    shapes = [tuple(t.shape)] * size if shapes is None else [tuple(s) for s in shapes]
     full = tuple(max(s[d] for s in shapes) for d in range(t.dim()))
     send = t.contiguous()
     if tuple(send.shape) != full:
@@ -225,36 +234,89 @@ def all_gather(t: torch.Tensor, shapes=None) -> list[torch.Tensor]:
         pad[tuple(slice(0, n) for n in send.shape)] = send
         send = pad
     # bytes on the wire: gloo's all_gather does not take every dtype (bf16)
-    out = [torch.empty_like(send) for _ in range(c.world)]
-    dist.all_gather([o.view(torch.uint8) for o in out], send.view(torch.uint8),
-                    group=c.compute_group)
+    out = [torch.empty_like(send) for _ in range(size)]
+    dist.all_gather([o.view(torch.uint8) for o in out], send.view(torch.uint8), group=g)
     return [o[tuple(slice(0, n) for n in s)] for o, s in zip(out, shapes)]
+
+
+def _staged(t: torch.Tensor, dtype=None) -> torch.Tensor:
+    """What gloo is given for ``t``: a host copy (pinned for a CUDA tensor),
+    in ``dtype`` (default ``t``'s)."""
+    dtype = t.dtype if dtype is None else dtype
+    if t.device.type == "cpu":
+        return t.to(dtype, copy=True)
+    host = torch.empty(t.shape, dtype=dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every member's ``t`` (a new tensor, on ``t``'s device, equal
+    on every member); ``group`` as for :func:`all_gather`. gloo sums bf16 and
+    fp16 in fp32 and rounds the sum back once."""
+    if _CLUSTER is None:
+        return t
+    g = _group(group)
+    if _CLUSTER.backend == "nccl":
+        out = t.clone()
+        dist.all_reduce(out, group=g)
+        return out
+    low = t.dtype in (torch.bfloat16, torch.float16)
+    work = _staged(t, torch.float32 if low else None)
+    dist.all_reduce(work, group=g)
+    return work.to(t.device, t.dtype, non_blocking=t.device.type != "cpu")
+
+
+def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Rank ``src``'s ``t`` (a global rank, a member of ``group``) on every
+    member, a new tensor on ``t``'s device; the others' ``t`` gives only the
+    shape and dtype."""
+    if _CLUSTER is None:
+        return t
+    g = _group(group)
+    if _CLUSTER.backend == "nccl":
+        out = t.contiguous().clone()
+        dist.broadcast(out.view(torch.uint8), src, group=g)
+        return out
+    work = _staged(t)
+    dist.broadcast(work.view(torch.uint8), src, group=g)
+    return work.to(t.device, non_blocking=t.device.type != "cpu")
+
+
+def transfer(sends: dict, recvs: dict) -> dict:
+    """Point to point: ``sends[peer]`` goes to each peer rank, and from each
+    peer of ``recvs`` comes a tensor like ``recvs[peer]`` (a tensor of the
+    shape, dtype and device to receive; its values are not read), all in one
+    batch of isend/irecv on the tensor group; a peer calls this with this
+    rank among its ``recvs`` and ``sends`` the other way round. Returns
+    {peer: received}."""
+    if _CLUSTER is None or not (sends or recvs):
+        return {}
+    c = _CLUSTER
+    ops, got = [], {}
+    keep = []  # the staged sends live until the batch completes
+    for peer, t in sends.items():
+        send = _staged(t) if c.backend == "gloo" and t.device.type != "cpu" else t.contiguous()
+        keep.append(send)
+        # bytes on the wire, as all_gather sends them
+        ops.append(dist.P2POp(dist.isend, send.view(torch.uint8), peer, c.compute_group))
+    for peer, like in recvs.items():
+        stage = c.backend == "gloo" and like.device.type != "cpu"
+        recv = torch.empty(like.shape, dtype=like.dtype, device="cpu" if stage else like.device,
+                           pin_memory=stage)
+        ops.append(dist.P2POp(dist.irecv, recv.view(torch.uint8), peer, c.compute_group))
+        got[peer] = (recv, like.device)
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return {peer: recv.to(device) for peer, (recv, device) in got.items()}
 
 
 def exchange(sends: dict) -> dict:
     """Point to point: ``sends[peer]`` goes to each peer rank, and from each
     comes a tensor of the same shape and dtype (the peer calls this with this
-    rank among its peers), all in one batch of isend/irecv on the tensor
-    group. Returns {peer: received} on the sent tensors' devices."""
-    if _CLUSTER is None or not sends:
-        return {}
-    c = _CLUSTER
-    ops, got = [], {}
-    for peer, t in sends.items():
-        stage = c.backend == "gloo" and t.device.type != "cpu"
-        if stage:
-            send = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            send.copy_(t)
-        else:
-            send = t.contiguous()
-        recv = torch.empty(t.shape, dtype=t.dtype, device=send.device, pin_memory=stage)
-        # bytes on the wire, as all_gather sends them
-        ops += [dist.P2POp(dist.isend, send.view(torch.uint8), peer, c.compute_group),
-                dist.P2POp(dist.irecv, recv.view(torch.uint8), peer, c.compute_group)]
-        got[peer] = (recv, t.device)
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return {peer: recv.to(device) for peer, (recv, device) in got.items()}
+    rank among its peers). Returns {peer: received} on the sent tensors'
+    devices."""
+    return transfer(sends, sends)
 
 
 def barrier(name: str = "barrier") -> None:

@@ -4,8 +4,9 @@ Twin of ``ml_depth_pro_video_tpu/train/data.py``. No third-party input
 stack: a directory dataset of (image, depth) pairs with a background
 prefetch thread, an ordered decode pool, deterministic shuffling, and an
 upload to one device (pinned host memory, non-blocking copy) in place of
-the JAX package's DP sharding. Batches are ``torch`` tensors; their values
-equal the JAX package's arrays bit for bit.
+the JAX package's DP sharding; across ranks each rank decodes only its rows
+of every global batch (``local_rows``). Batches are ``torch`` tensors; their
+values equal the JAX package's arrays bit for bit.
 
 Expected layout: ``<root>/*.png|jpg`` images with matching
 ``<root>/<stem>_depth.npy`` (or ``.npz`` with a ``depth`` array).
@@ -102,14 +103,17 @@ class DepthDataset:
         instead of skipping it. Use wherever batch composition must be
         deterministic across runs; validation does.
 
-        The JAX package's multi-host mode (``local_rows`` + ``assemble``:
-        each host decodes its rows of the global batch) is not ported:
-        passing either raises (ROADMAP A item 10)."""
-        if local_rows is not None or assemble is not None:
-            raise NotImplementedError(
-                "DepthDataset.batches(local_rows=, assemble=) (multi-host decode) is not "
-                "ported to the PyTorch package yet: ROADMAP A item 10 (parallel/ on "
-                "torch.distributed)")
+        Across ranks (``local_rows`` + ``assemble``): every rank runs the SAME
+        seeded permutation stream but decodes only the global batch rows in
+        ``local_rows`` (``parallel/multihost.local_rows``), and the stacked
+        local slabs are passed through ``assemble`` before the upload (the
+        training loop keeps each rank's rows: the identity). Row alignment
+        across ranks is load-bearing, so unreadable pairs and rows past a
+        short batch's end are always zero-depth rows there: dropping one would
+        shift every later row on one rank only. Assumes all ranks see the
+        same file listing (``self.pairs`` is globbed and sorted)."""
+        if (local_rows is None) != (assemble is None):
+            raise ValueError("local_rows and assemble must be given together")
         if device is not None:
             device = torch.device(device)
         q: queue.Queue = queue.Queue(maxsize=prefetch)
@@ -148,6 +152,24 @@ class DepthDataset:
                     "unreadable pair %s: %s", self.pairs[j][0], exc)
                 return None
 
+        def stacked(data):
+            xs = torch.from_numpy(np.stack([d[0] for d in data]))
+            ds = torch.from_numpy(np.stack([d[1] for d in data]))
+            if device is not None and device.type == "cuda":
+                # pinned here, in the producer, so the consumer's copy does
+                # not block the host
+                xs, ds = xs.pin_memory(), ds.pin_memory()
+            return xs, ds
+
+        def load_local(sel, ex):
+            """This rank's rows of the global batch, in global-row order;
+            unreadable and pad rows carry a zero depth target (exactly zero
+            loss and gradient under the silog mask)."""
+            idxs = [sel[min(r, len(sel) - 1)] for r in local_rows]
+            loaded = list(ex.map(load_isolated, idxs))
+            return [zero_pair() if entry is None or r >= len(sel) else entry
+                    for r, entry in zip(local_rows, loaded)]
+
         def producer():
             import logging
             from concurrent.futures import ThreadPoolExecutor
@@ -166,6 +188,11 @@ class DepthDataset:
                             n_out += 1
                             if n_out <= skip:
                                 continue  # resume replay: never decoded
+                            if local_rows is not None:
+                                data = load_local(sel, ex)
+                                if not put(stacked(data)):
+                                    return
+                                continue
                             loaded = list(ex.map(load_isolated, sel))
                             if zero_substitute:
                                 # deterministic batch composition (see
@@ -199,13 +226,7 @@ class DepthDataset:
                                 while len(data) < batch_size:
                                     data.append((data[-1][0],
                                                  np.zeros_like(data[-1][1])))
-                            xs = torch.from_numpy(np.stack([d[0] for d in data]))
-                            ds = torch.from_numpy(np.stack([d[1] for d in data]))
-                            if device is not None and device.type == "cuda":
-                                # pinned here, in the producer, so the consumer's
-                                # copy does not block the host
-                                xs, ds = xs.pin_memory(), ds.pin_memory()
-                            if not put((xs, ds)):
+                            if not put(stacked(data)):
                                 return
             finally:
                 put(stop)
@@ -217,6 +238,8 @@ class DepthDataset:
                 if item is stop:
                     return
                 xs, ds = item
+                if assemble is not None:
+                    xs, ds = assemble(xs), assemble(ds)
                 if device is not None:
                     xs = xs.to(device, non_blocking=True)
                     ds = ds.to(device, non_blocking=True)

@@ -136,8 +136,7 @@ def distill(
 
     ``student`` names a `model_preset` (or pass ``student_cfg``);
     ``fit_kwargs`` flow to `train.loop.fit` (batch_size, epochs, lr,
-    checkpoint_dir, holdout, ...; ``tp`` / ``pp`` above 1 raise there,
-    ROADMAP A item 10). Returns the final TrainState.
+    tp/pp, checkpoint_dir, holdout, ...). Returns the final TrainState.
     """
     from ..models.depth_pro import model_preset
     from .loop import fit
@@ -165,10 +164,8 @@ def main(argv=None) -> None:
     ap.add_argument("--epochs", type=int, default=1)
     ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--warmup_steps", type=int, default=100)
-    ap.add_argument("--tp", type=int, default=1,
-                    help="above 1 not ported yet: ROADMAP A item 10")
-    ap.add_argument("--pp", type=int, default=1,
-                    help="above 1 not ported yet: ROADMAP A item 10")
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--pp", type=int, default=1)
     ap.add_argument("--checkpoint_dir", default=None)
     ap.add_argument("--save_every", type=int, default=500)
     ap.add_argument("--holdout", type=int, default=0)

@@ -1,4 +1,4 @@
-"""Fine-tuning step for Depth Pro on one device.
+"""Fine-tuning step for Depth Pro, on one device or across ranks.
 
 Twin of ``ml_depth_pro_video_tpu/train/step.py``: a scale-invariant log-depth
 loss, AdamW with global-norm clipping and a warmup + cosine schedule, and
@@ -23,8 +23,27 @@ updates as the JAX package's ``optax`` chain:
   counts data batches, the schedule counts updates.
 
 Params, moments and the accumulator are updated in place (the JAX package
-donates its state instead). The step is single-device: a ``dp``, ``tp`` or
-``pp`` above 1 raises (ROADMAP A item 10).
+donates its state instead).
+
+Across ranks (``make_train_step(dp=, tp=, pp=)``, one process per rank, the
+twin of ``make_sharded_train_step`` and, for ``pp``, of
+``parallel/pipeline.py::make_pp_train_step``) a state carries its
+``parallel/sharding.py::Layout``: each rank holds its shard of the params
+and of the moments, takes its rows of the global batch, and gets the loss
+and the gradients of the one-rank step on that batch. Three traps:
+
+- the global SILog: the loss is the SILog of the whole batch, whose
+  lambda * mean^2 term is not linear in the split, so a mean of per-rank
+  losses (DDP's) is another loss with another gradient; and differentiating
+  a loss an all-reduce made equal on every rank would count the gradient
+  once per rank. Each rank differentiates its own share against the batch's
+  reduced sums (``global_silog``), then the gradients are summed over dp;
+- the global norm that clipping uses is the whole model's: a tp- or
+  pp-split leaf's square summed over its group once, a replicated leaf's
+  counted once (``Layout.global_norm``); AdamW stays elementwise on the
+  local shards;
+- a leaf without a gradient (the FOV head's) is decayed as a zero gradient
+  on every rank, as on one, and never all-reduced.
 """
 
 from __future__ import annotations
@@ -39,6 +58,15 @@ import torch
 from ..ckpt.params import map_tree
 from ..core.precision import Precision, disable_tf32, resolve_device
 from ..models.depth_pro import DepthProConfig, forward
+from ..parallel import multihost
+from ..parallel.mesh import make_mesh, with_groups
+from ..parallel.sharding import (
+    Layout,
+    check_heads,
+    gather_params,
+    param_shardings,
+    shard_params,
+)
 
 LOGGER = logging.getLogger(__name__)
 
@@ -70,25 +98,48 @@ class TrainState:
     params: dict
     opt_state: OptState
     step: int  # data batches trained
+    layout: Layout | None = None  # across ranks: this rank holds its shard
 
     def to_dict(self) -> dict:
-        """The state as plain dicts, lists, tensors and ints: what a
-        checkpoint holds (``ckpt/checkpointing.py``)."""
-        opt = self.opt_state
-        return {"params": map_tree(lambda t: t.detach(), self.params),
-                "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu,
-                              "mini_step": opt.mini_step, "acc": opt.acc},
+        """The state as plain dicts, lists, tensors and ints, in the one-rank
+        layout: what a checkpoint holds (``ckpt/checkpointing.py``). A sharded
+        state is gathered onto the host (collective: every rank calls it)."""
+        opt, lay = self.opt_state, self.layout
+        if lay is None:
+            return {"params": map_tree(lambda t: t.detach(), self.params),
+                    "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu,
+                                  "mini_step": opt.mini_step, "acc": opt.acc},
+                    "step": int(self.step)}
+
+        def gather(tree, specs):
+            return gather_params(tree, lay.mesh, specs=specs, device="cpu")
+
+        return {"params": gather(map_tree(lambda t: t.detach(), self.params), lay.specs),
+                "opt_state": {"count": opt.count, "mu": gather(opt.mu, lay.leaf_specs),
+                              "nu": gather(opt.nu, lay.leaf_specs), "mini_step": opt.mini_step,
+                              "acc": None if opt.acc is None else gather(opt.acc, lay.leaf_specs)},
                 "step": int(self.step)}
 
     @classmethod
-    def from_dict(cls, d: dict) -> "TrainState":
-        """The inverse of ``to_dict``; the params become leaves that require
-        grad."""
+    def from_dict(cls, d: dict, layout: Layout | None = None, device=None) -> "TrainState":
+        """The inverse of ``to_dict``: cut for ``layout`` (this rank's shard)
+        and put on ``device`` when given; the params become leaves that
+        require grad."""
         o = d["opt_state"]
-        return cls(params=map_tree(lambda t: t.requires_grad_(), d["params"]),
-                   opt_state=OptState(count=o["count"], mu=o["mu"], nu=o["nu"],
-                                      mini_step=o["mini_step"], acc=o["acc"]),
-                   step=d["step"])
+        params, mu, nu, acc = d["params"], o["mu"], o["nu"], o["acc"]
+        if layout is not None:
+            mesh, leaf_specs = layout.mesh, layout.leaf_specs
+            params = shard_params(params, mesh, specs=layout.specs)
+            mu, nu = (shard_params(m, mesh, specs=leaf_specs) for m in (mu, nu))
+            acc = None if acc is None else shard_params(acc, mesh, specs=leaf_specs)
+        if device is not None:
+            params = map_tree(lambda t: t.to(device), params)
+            mu, nu = [t.to(device) for t in mu], [t.to(device) for t in nu]
+            acc = None if acc is None else [t.to(device) for t in acc]
+        return cls(params=map_tree(lambda t: t.requires_grad_(), params),
+                   opt_state=OptState(count=o["count"], mu=mu, nu=nu,
+                                      mini_step=o["mini_step"], acc=acc),
+                   step=d["step"], layout=layout)
 
 
 def silog_loss(pred_inv_depth: torch.Tensor, target_depth: torch.Tensor,
@@ -108,6 +159,28 @@ def silog_loss(pred_inv_depth: torch.Tensor, target_depth: torch.Tensor,
     mean_g2 = torch.sum(torch.square(g)) / n
     mean_g = torch.sum(g) / n
     return mean_g2 - lam * torch.square(mean_g)
+
+
+def global_silog(pred_inv_depth: torch.Tensor, target_depth: torch.Tensor, group=None,
+                 eps: float = 1e-6, lam: float = 0.85) -> tuple:
+    """(the SILog of the batch split over ``group``, this rank's share of
+    it; ``group`` None: this rank's batch alone). The batch's sums (squares,
+    values, valid pixels) are all-reduced in float64 and held constant; the share is linear in this rank's sums, with
+    the gradient of ``silog_loss`` on the whole batch once summed over the
+    group: d(S2/N - lam (S1/N)^2) = dS2/N - 2 lam (S1/N) dS1/N."""
+    pred_depth = 1.0 / torch.clamp(pred_inv_depth, eps, 1e4)
+    valid = torch.isfinite(target_depth) & (target_depth > 0)
+    target = torch.where(valid, target_depth, torch.ones_like(target_depth))
+    g = torch.where(valid, torch.log(torch.clamp(pred_depth, min=eps)) - torch.log(target),
+                    torch.zeros_like(pred_depth))
+    s2, s1 = torch.sum(torch.square(g)), torch.sum(g)
+    sums = torch.stack([s2.detach().double(), s1.detach().double(), valid.sum().double()])
+    if group is not None:
+        sums = multihost.all_reduce(sums, group)
+    n = torch.clamp(sums[2], min=1)
+    mean_g = sums[1] / n
+    loss = (sums[0] / n - lam * torch.square(mean_g)).float()
+    return loss, s2 / n.float() - (2 * lam * mean_g).float() * s1 / n.float()
 
 
 def _f32(x) -> np.float32:
@@ -161,9 +234,11 @@ class AdamW:
                         acc=zeros() if self.grad_accum > 1 else None)
 
     @torch.no_grad()
-    def update(self, grads: list, state: OptState, params) -> bool:
+    def update(self, grads: list, state: OptState, params, layout: Layout | None = None) -> bool:
         """One data batch. Returns whether an update was applied (always
-        without accumulation; every ``grad_accum``-th batch with it)."""
+        without accumulation; every ``grad_accum``-th batch with it).
+        ``layout``: the params are this rank's shard, and the clipping norm
+        is the whole model's."""
         leaves = tree_leaves(params)
         if len(grads) != len(leaves):
             raise ValueError(f"{len(grads)} gradients for {len(leaves)} params")
@@ -175,21 +250,23 @@ class AdamW:
             state.mini_step += 1
             if state.mini_step < self.grad_accum:
                 return False
-            self._apply(state.acc, state, leaves)  # reads the mean, writes no gradient
+            self._apply(state.acc, state, leaves, layout)  # reads the mean, writes no gradient
             torch._foreach_zero_(state.acc)
             state.mini_step = 0
             return True
-        self._apply(grads, state, leaves)
+        self._apply(grads, state, leaves, layout)
         return True
 
-    def _apply(self, grads: list, state: OptState, leaves: list) -> None:
+    def _apply(self, grads: list, state: OptState, leaves: list, layout=None) -> None:
         have = [i for i, g in enumerate(grads) if g is not None]
         none = [i for i, g in enumerate(grads) if g is None]
         g = [grads[i] for i in have]
         if self.clip_norm is not None and g:
             # optax: keep g where |g| < c, else (g / |g|) * c; chosen on the
             # device (no host sync): g / 1 * 1 is g exactly
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g, 2)))
+            norms = torch.stack(torch._foreach_norm(g, 2))
+            norm = (torch.linalg.vector_norm(norms) if layout is None
+                    else layout.global_norm(norms, have))
             keep = norm < self.clip_norm
             g = torch._foreach_div(g, torch.where(keep, torch.ones_like(norm), norm))
             torch._foreach_mul_(g, torch.where(keep, torch.ones_like(norm),
@@ -256,60 +333,126 @@ def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-2,
     return AdamW(schedule, weight_decay, clip_norm, grad_accum)
 
 
-def loss_fn(params, images, target_depth, cfg: DepthProConfig, precision: Precision):
-    """SILog of the canonical head. ViT blocks are recomputed in the
-    backward pass (1536 px activations would not fit otherwise); the FOV
-    head is not part of the loss."""
-    canonical, _ = forward(params, images, cfg, precision, compute_fov=False, remat=True)
-    return silog_loss(canonical[..., 0].float(), target_depth)
+def check_degrees(tp: int, pp: int, grad_accum: int) -> None:
+    """The JAX package's refusals of parallel degrees that do not combine."""
+    if pp > 1 and tp > 1:
+        raise ValueError("pp and tp cannot be combined (pick one of the ViT sharding modes)")
+    if pp > 1 and grad_accum > 1:
+        raise ValueError("grad_accum applies to the DPxTP step; the GPipe path already "
+                         "microbatches (use --microbatches)")
 
 
-def value_and_grad(params, images, target_depth, cfg: DepthProConfig, precision: Precision):
+def canonical_map(params, images, cfg: DepthProConfig, precision: Precision,
+                  layout: Layout | None = None) -> torch.Tensor:
+    """The canonical inverse depth (B, S, S) in fp32, the FOV head skipped, the
+    ViT blocks recomputed in the backward pass (1536 px activations would not
+    fit otherwise). With ``layout`` the params are this rank's shard: the
+    blocks run tensor-parallel, or the patch ViT as GPipe stages, and every
+    rank of the mesh calls this at the same point (the forward's collectives
+    run in lock-step)."""
+    patch_vit_fn = tp = None
+    if layout is not None and layout.pp > 1:
+        from ..parallel.pipeline import pp_patch_vit_fn
+
+        patch_vit_fn = pp_patch_vit_fn(cfg, precision, layout, remat=True)
+    elif layout is not None:
+        tp = layout.tp
+    canonical, _ = forward(params, images, cfg, precision, compute_fov=False, remat=True,
+                           patch_vit_fn=patch_vit_fn, tp=tp)
+    return canonical[..., 0].float()
+
+
+def loss_fn(params, images, target_depth, cfg: DepthProConfig, precision: Precision,
+            layout: Layout | None = None):
+    """SILog of the canonical head (``canonical_map``), on this batch."""
+    return silog_loss(canonical_map(params, images, cfg, precision, layout), target_depth)
+
+
+def value_and_grad(params, images, target_depth, cfg: DepthProConfig, precision: Precision,
+                   layout: Layout | None = None):
     """(loss, gradients aligned with ``tree_leaves(params)``, ``None`` for a
-    leaf the loss does not reach). The params' leaves must require grad."""
+    leaf the loss does not reach). The params' leaves must require grad.
+    With ``layout``: ``images`` and ``target_depth`` are this rank's rows of
+    the global batch, the loss is the global batch's and the gradients this
+    rank's shard of the one-rank step's."""
     leaves = tree_leaves(params)
-    loss = loss_fn(params, images, target_depth, cfg, precision)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss.detach(), list(grads)
+    if layout is None:
+        loss = loss_fn(params, images, target_depth, cfg, precision)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), list(grads)
+    if layout.pp > 1:
+        from ..parallel.pipeline import pp_value_and_grad
+
+        loss, grads = pp_value_and_grad(params, images, target_depth, cfg, precision, layout)
+    else:
+        loss, share = global_silog(canonical_map(params, images, cfg, precision, layout),
+                                   target_depth, layout.group("dp"))
+        grads = list(torch.autograd.grad(share, leaves, allow_unused=True))
+    layout.sum_dp(grads)
+    return loss.detach(), grads
 
 
 def train_step(state: TrainState, images, target_depth, cfg: DepthProConfig,
                optimizer: AdamW, precision: Precision = Precision.bf16()):
-    """One step on one data batch; ``state`` is updated in place and
-    returned with the loss (a 0-d tensor on the device)."""
-    loss, grads = value_and_grad(state.params, images, target_depth, cfg, precision)
-    optimizer.update(grads, state.opt_state, state.params)
+    """One step on one data batch (this rank's rows of it across ranks);
+    ``state`` is updated in place and returned with the loss (a 0-d tensor
+    on the device)."""
+    loss, grads = value_and_grad(state.params, images, target_depth, cfg, precision,
+                                 state.layout)
+    optimizer.update(grads, state.opt_state, state.params, state.layout)
     del grads
     state.step += 1
     return state, loss
 
 
-def refuse_multi_device(**degrees) -> None:
-    """Raise for a parallel degree above 1 (``dp``, ``tp``, ``pp``; None is 1)."""
-    for name, n in degrees.items():
-        if (n or 1) > 1:
-            raise NotImplementedError(
-                f"{name}={n}: data, tensor and pipeline parallel training are not ported to "
-                "the PyTorch package yet: ROADMAP A item 10 (parallel/ on torch.distributed)")
+def init_train(params, cfg: DepthProConfig, device, layout: Layout | None, optimizer: AdamW,
+               precision: Precision):
+    """(state, step) from a one-rank param tree: copied onto ``device`` in
+    fp32, cut to this rank's shard of ``layout``, as leaves that require
+    grad."""
+    device = resolve_device(device)
+    if layout is not None and layout.mesh.size != multihost.world_size():
+        raise ValueError(f"a training mesh of {layout.mesh.size} ranks in a group of "
+                         f"{multihost.world_size()}: every rank trains")
+    if device.type == "cuda":
+        disable_tf32()
+    params = map_tree(lambda t: t.detach().to(device, torch.float32), params)
+    if layout is not None:
+        params = shard_params(params, layout.mesh, specs=layout.specs)
+    params = map_tree(lambda t: t.clone().requires_grad_(), params)
+    state = TrainState(params, optimizer.init(params), 0, layout)
+    return state, functools.partial(train_step, cfg=cfg, optimizer=optimizer,
+                                    precision=precision)
 
 
 def make_train_step(params, cfg: DepthProConfig, device="cuda", lr: float = 1e-4,
                     precision: Precision = Precision.bf16(), warmup_steps: int = 0,
                     total_steps: int | None = None, clip_norm: float | None = 1.0,
-                    grad_accum: int = 1, dp: int = 1, tp: int = 1, pp: int = 1):
-    """(state, step) on one device: the one-card twin of the JAX package's
-    ``make_sharded_train_step``. ``params`` (a tree of fp32 tensors) is
-    copied onto ``device`` as leaves that require grad; ``step(state,
-    images, depth)`` returns ``(state, loss)``. ``dp``, ``tp`` or ``pp``
-    above 1 raises: the multi-device steps are ROADMAP A item 10."""
-    refuse_multi_device(dp=dp, tp=tp, pp=pp)
-    device = resolve_device(device)
-    if device.type == "cuda":
-        disable_tf32()
+                    grad_accum: int = 1, dp: int | None = None, tp: int = 1, pp: int = 1,
+                    microbatches: int = 5):
+    """(state, step): the twin of the JAX package's ``make_sharded_train_step``.
+    ``params`` (a tree of fp32 tensors) is copied onto ``device`` as leaves
+    that require grad; ``step(state, images, depth)`` returns ``(state,
+    loss)``. In a group of ranks (``parallel/multihost.py``) every rank calls
+    this: the params are split by the TP rules over a (dp, tp) mesh (``dp``
+    defaults to the ranks over ``tp``), or, for ``pp > 1``, along the patch
+    ViT's depth over a (dp, pp) mesh (``parallel/pipeline.py``, GPipe over
+    ``microbatches``); each step then takes this rank's rows of the global
+    batch. ``grad_accum`` averages over that many data batches per update,
+    with dp x tp too; with pp it is refused."""
+    check_degrees(tp, pp, grad_accum)
+    if pp > 1:
+        from ..parallel.pipeline import make_pp_mesh, make_pp_train_step
+
+        mesh = make_pp_mesh(dp or max(multihost.world_size() // pp, 1), pp)
+        return make_pp_train_step(params, cfg, mesh, microbatches, lr=lr, precision=precision,
+                                  warmup_steps=warmup_steps, total_steps=total_steps,
+                                  clip_norm=clip_norm, device=device)
+    check_heads(cfg.vit.num_heads, tp)
+    mesh = make_mesh(dp=dp, tp=tp)
+    layout = None
+    if multihost.world_size() > 1:
+        layout = Layout.build(with_groups(mesh), params, param_shardings(params, mesh, tp > 1))
     optimizer = make_optimizer(lr, warmup_steps=warmup_steps, total_steps=total_steps,
                                clip_norm=clip_norm, grad_accum=grad_accum)
-    params = map_tree(lambda t: t.detach().to(device, torch.float32).clone().requires_grad_(),
-                      params)
-    state = TrainState(params, optimizer.init(params), 0)
-    return state, functools.partial(train_step, cfg=cfg, optimizer=optimizer,
-                                    precision=precision)
+    return init_train(params, cfg, device, layout, optimizer, precision)

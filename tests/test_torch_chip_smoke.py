@@ -42,6 +42,8 @@ def _packed(b, s, heads, hd, dtype, with_bias):
     (70, 433, True, torch.float32, 0.8023, "operations"),
     (18, 577, False, torch.bfloat16, 0.0254, "bytes"),  # the latency slice over 2 ranks
     (18, 289, True, torch.bfloat16, 0.0127, "bytes"),
+    (35, 577, False, torch.bfloat16, 0.0494, "bytes"),  # dp=2 at batch 2: a row per rank
+    (14, 577, False, torch.bfloat16, 0.0198, "bytes"),  # a pp microbatch: 70 patch rows / 5
 ])
 def test_attention_bound_at_the_documented_shapes(b, s, with_bias, dtype, want_ms, want_by):
     flops = chip_smoke.attention_flops(b, 16, s, 64)
@@ -49,6 +51,13 @@ def test_attention_bound_at_the_documented_shapes(b, s, with_bias, dtype, want_m
     ms, by = chip_smoke.bound(flops, _packed(b, s, 16, 64, dtype, with_bias), dtype)
     assert by == want_by
     assert round(ms, 4) == want_ms
+
+
+def test_attention_bound_on_the_tp_local_heads():
+    """tp=2: each rank's 8 of the 16 heads at the patch ViT's 70 rows, (70, 577, 1536)."""
+    ms, by = chip_smoke.bound(chip_smoke.attention_flops(70, 8, 577, 64),
+                              _packed(70, 577, 8, 64, torch.bfloat16, False), torch.bfloat16)
+    assert (round(ms, 4), by) == (0.0494, "bytes")
 
 
 # K2 at the decoder's levels at batch 2: 48^2 and 96^2 run K2, 192^2 and 384^2 are the width
@@ -558,3 +567,70 @@ def test_zero_halo_control_zeroes_one_level_only(monkeypatch):
     assert bands.extend(x, 2)[:, -2:].eq(0).all() and bands.extend(x, 2)[:, :24].eq(1).all()
     y = torch.ones((1, 48, 96, 4))
     assert bands.extend(y, 2)[:, -2:].eq(7).all()
+
+
+def _train_parallel_forward_shapes(monkeypatch, mode):
+    """K1's shapes in one forward (FOV off) of the large preset on rank 0 of
+    a train_parallel mode, shapes only: meta tensors, the collectives stubbed
+    to return tensors of the shapes they would (the ranks' tp sums, the GPipe
+    stage's receives and the banks' broadcasts)."""
+    from ml_depth_pro_video_tpu_torch.ckpt.params import init_depth_pro
+    from ml_depth_pro_video_tpu_torch.core.precision import Precision
+    from ml_depth_pro_video_tpu_torch.models import depth_pro as dp
+    from ml_depth_pro_video_tpu_torch.models import vit as vit_module
+    from ml_depth_pro_video_tpu_torch.ops import resblock
+    from ml_depth_pro_video_tpu_torch.parallel import multihost as mh
+    from ml_depth_pro_video_tpu_torch.parallel import pipeline, sharding
+    from ml_depth_pro_video_tpu_torch.parallel.mesh import AxisGroup, Mesh
+
+    monkeypatch.setattr(mh, "all_reduce", lambda t, group=None: t.new_empty(t.shape))
+    monkeypatch.setattr(mh, "broadcast", lambda t, src, group=None: t.new_empty(t.shape))
+    monkeypatch.setattr(mh, "transfer", lambda sends, recvs: {
+        p: t.new_empty(t.shape) for p, t in recvs.items()})
+    shapes = {}
+    real_attn = vit_module.attention_packed
+
+    def attn(qkv, heads, key_bias=None):
+        key = f"K1 {'x'.join(map(str, qkv.shape))}"
+        shapes[key] = shapes.get(key, 0) + 1
+        return real_attn(qkv, heads, key_bias)
+
+    monkeypatch.setattr(vit_module, "attention_packed", attn)
+    monkeypatch.setattr(resblock, "fused_residual_block", lambda x, *a: x)
+    cfg = dp.model_preset("large")
+    kw = chip_smoke.TRAIN_PARALLEL_MODES[mode]
+    params = init_depth_pro(cfg, torch.Generator().manual_seed(0), "meta")
+    rows = chip_smoke.BATCH // kw.get("dp", 1)
+    x = torch.empty((rows, cfg.img_size, cfg.img_size, 3), device="meta")
+    fwd = dict(compute_fov=False)
+    if "tp" in kw:
+        mesh = Mesh(np.arange(2).reshape(1, 2), ("dp", "tp"), {"tp": AxisGroup(None, (0, 1), 0)})
+        layout = sharding.Layout.build(mesh, params, sharding.param_shardings(params, mesh))
+        params, fwd["tp"] = sharding.shard_params(params, mesh), layout.tp
+    if "pp" in kw:
+        mesh = Mesh(np.arange(2).reshape(1, 2), ("dp", "pp"), {"pp": AxisGroup(None, (0, 1), 0)})
+        layout = sharding.Layout.build(mesh, params, pipeline._param_specs(params),
+                                       kw["microbatches"])
+        params = pipeline.shard_pp_params(params, mesh)
+        fwd["patch_vit_fn"] = pipeline.pp_patch_vit_fn(cfg, Precision.bf16(), layout)
+    with torch.no_grad():
+        canonical, _ = dp.forward(params, x, cfg, Precision.bf16(), **fwd)
+    assert tuple(canonical.shape) == (rows, cfg.img_size, cfg.img_size, 1)
+    return shapes
+
+
+@pytest.mark.parametrize("mode", ["dp", "tp", "pp"])
+def test_train_parallel_launches_per_rank_per_step(monkeypatch, mode):
+    """A train_parallel step on a rank runs each block's forward and its
+    recompute: twice one forward's K1, at the shapes the phase expects (dp:
+    the rank's row; tp: 8 of 16 heads, (70, 577, 1536); pp: the stage's 12
+    blocks on 5 microbatches of 14 patch rows, the image ViT whole); each is
+    held by the kernels phase."""
+    from ml_depth_pro_video_tpu_torch.models.depth_pro import model_preset
+
+    forward_shapes = _train_parallel_forward_shapes(monkeypatch, mode)
+    want = chip_smoke.train_parallel_shapes(model_preset("large"), mode)
+    assert want == {k: 2 * v for k, v in forward_shapes.items()}
+    held = {s for s, _ in chip_smoke.K1_SHAPES}
+    for key in want:
+        assert tuple(map(int, key.split()[1].split("x"))) in held, key

@@ -109,8 +109,13 @@ def test_distill_cli_on_the_cpu(frames_dir, tmp_path):
     assert (ckpt / "2" / "state.pt").is_file()
 
 
-@pytest.mark.parametrize("kw", [dict(tp=2), dict(pp=2)])
-def test_unported_student_parallelism_raises(teachers, frames_dir, tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(tp=2), "mesh 0x2 needs 2 devices, have 1"),
+    (dict(pp=2), "pp=2 needs at least 2 devices, have 1")])
+def test_student_parallelism_reaches_fit(teachers, frames_dir, tmp_path, kw, match):
+    """``tp`` / ``pp`` flow to ``fit``, whose mesh in one process raises the
+    JAX package's ValueError (``fit`` across ranks:
+    tests/test_torch_fit_parallel.py)."""
+    with pytest.raises(ValueError, match=match):
         tdistill.distill(frames_dir, str(tmp_path / "labels"), student="tiny",
                          teacher_runner=teachers[1], batch_size=2, device="cpu", **kw)

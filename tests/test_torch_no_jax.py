@@ -40,7 +40,8 @@ def test_port_covers_the_slice_modules():
                  "effects.parallax", "ckpt.quantize", "serve.server", "ckpt.export",
                  "utils.compile_cache", "train.step", "train.data", "train.loop",
                  "train.distill", "ckpt.checkpointing", "utils.synthetic", "utils.profiling",
-                 "parallel.multihost", "parallel.mesh", "parallel.spmd", "parallel.latency"):
+                 "parallel.multihost", "parallel.mesh", "parallel.spmd", "parallel.latency",
+                 "parallel.sharding", "parallel.pipeline"):
         assert f"ml_depth_pro_video_tpu_torch.{name}" in mods
 
 

@@ -152,8 +152,8 @@ def test_runner_retries_device_errors_only(checkpoint, monkeypatch):
 
 @pytest.mark.parametrize("kwargs", [{"parallel": "dp"}, {"parallel": "latency"}])
 def test_unported_runner_options_raise(kwargs, checkpoint):
-    """``mesh=`` with ``parallel="dp"`` and ``"latency"``, once the options of
-    ROADMAP A item 10 that raised: on a one-rank mesh both run the whole
+    """``mesh=`` with ``parallel="dp"`` and ``"latency"``, once options that
+    raised before the port had ``parallel/``: on a one-rank mesh both run the whole
     batch on this process and equal the runner without a mesh bit for bit
     (``tests/test_torch_parallel.py`` runs them over 2 and 3 ranks)."""
     cfg = dataclasses.replace(tiny_config(), checkpoint_uri=checkpoint)

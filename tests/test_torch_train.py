@@ -378,9 +378,15 @@ def test_grad_accum_counts_data_batches_and_updates_apart(npz):
     assert not torch.equal(tstep.tree_leaves(state.params)[0], before)
 
 
-@pytest.mark.parametrize("kw", [dict(dp=2), dict(tp=2), dict(pp=4)])
-def test_multi_device_step_is_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(dp=2), "mesh 2x1 needs 2 devices, have 1"),
+    (dict(tp=4), "tp=4 must divide num_heads=2"),
+    (dict(pp=4), "mesh 1x4 needs 4 devices, have 1")])
+def test_multi_device_step_refusals(kw, match):
+    """In one process a mesh larger than the group, and a tp that does not
+    divide the heads, raise the JAX package's ValueErrors (the working
+    multi-rank steps: tests/test_torch_train_parallel.py)."""
+    with pytest.raises(ValueError, match=match):
         tstep.make_train_step({}, tdp.tiny_config(), "cpu", **kw)
 
 
@@ -442,18 +448,41 @@ def test_train_cli_on_the_cpu(tmp_path):
     assert (ckpt / "1" / "state.pt").is_file()
 
 
-@pytest.mark.parametrize("kw", [dict(tp=2), dict(pp=2), dict(dp=2), dict(pp=2, tp=2),
-                                dict(pp=2, grad_accum=2)])
-def test_unported_fit_options_raise(tmp_path, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
+@pytest.mark.parametrize("kw,match", [
+    (dict(tp=2), "mesh 0x2 needs 2 devices, have 1"),
+    (dict(pp=2), "pp=2 needs at least 2 devices, have 1"),
+    (dict(dp=2), "mesh 2x1 needs 2 devices, have 1"),
+    (dict(pp=2, tp=2), "pp and tp cannot be combined"),
+    (dict(pp=2, grad_accum=2), "grad_accum applies to the DPxTP step")])
+def test_fit_parallel_refusals(tmp_path, kw, match):
+    """The JAX package's ValueErrors of ``fit``, raised before the data is
+    read (the directory is empty)."""
+    with pytest.raises(ValueError, match=match):
         tloop.fit(str(tmp_path), tdp.tiny_config(), device="cpu", **kw)
 
 
-@pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"],
-                                   ["--num_processes", "2"], ["--process_id", "0"]])
-def test_train_cli_refuses_multi_host(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
-        tloop.main(["--data_root", str(tmp_path), "--tiny", "--device", "cpu", *flags])
+@pytest.mark.parametrize("flags,want", [
+    (["--num_processes", "2", "--process_id", "0"], "--coordinator"),
+    (["--coordinator", "127.0.0.1:1", "--num_processes", "1", "--process_id", "0"], {}),
+    (["--pp", "2", "--microbatches", "7"], {"pp": 2, "microbatches": 7})])
+def test_train_cli_multi_host_flags(flags, want, tmp_path, monkeypatch):
+    """The multi-host flags join a group before any device use: several
+    processes need a coordinator; one process joins none and trains alone;
+    the parallel degrees reach ``fit`` (a stub here; the 2-rank CLI runs:
+    tests/test_torch_fit_parallel.py)."""
+    from ml_depth_pro_video_tpu_torch.parallel import multihost
+
+    calls = []
+    monkeypatch.setattr(tloop, "fit", lambda *a, **kw: calls.append(kw))
+    argv = ["--data_root", str(tmp_path), "--tiny", "--device", "cpu", *flags]
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            tloop.main(argv)
+        assert not calls
+        return
+    tloop.main(argv)
+    assert multihost.cluster() is None and len(calls) == 1
+    assert {k: calls[0][k] for k in want} == want
 
 
 def test_fit_defaults_to_the_card(tmp_path):

@@ -167,10 +167,44 @@ def test_batches_go_to_the_device_asked_for(tmp_path):
     assert xs.device.type == "cpu" and ds.device.type == "cpu"
 
 
-def test_multi_host_decode_is_not_ported(tmp_path):
+@pytest.mark.parametrize("kw", [dict(local_rows=[0]), dict(assemble=lambda a: a)])
+def test_local_rows_and_assemble_go_together(tmp_path, kw):
     _pairs(tmp_path, 2, size=(16, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 10"):
-        next(TDataset(str(tmp_path), 16).batches(2, local_rows=[0], assemble=lambda a: a))
+    with pytest.raises(ValueError, match="must be given together"):
+        next(TDataset(str(tmp_path), 16).batches(2, **kw))
+
+
+def test_local_rows_equal_the_global_batch_rows(tmp_path):
+    """Each rank's rows (``local_rows`` + ``assemble``) equal those rows of the
+    global batch, as the JAX package's decode gives them: every batch of two
+    epochs of 5 pairs at batch 3 (the last of each epoch short: its rows past
+    the end are zero-depth), a skip, and an unreadable pair zero-substituted."""
+    _pairs(tmp_path, 5, size=(16, 16))
+    (tmp_path / "s2.png").write_bytes(b"not a png")
+    kw = dict(epochs=2, drop_remainder=False, zero_substitute=True)
+    full = list(TDataset(str(tmp_path), 16, seed=4).batches(3, **kw))
+    jax_rows = {}
+    for rows in ([0], [1, 2], [2]):
+        mine = list(TDataset(str(tmp_path), 16, seed=4).batches(
+            3, local_rows=rows, assemble=lambda a: a * 1, **kw))
+        jmine = list(JDataset(str(tmp_path), 16, seed=4).batches(
+            3, local_rows=rows, assemble=np.asarray, **kw))
+        jax_rows[tuple(rows)] = jmine
+        assert len(mine) == len(full) == len(jmine) == 4
+        for (x, d), (fx, fd), (jx, jd) in zip(mine, full, jmine):
+            np.testing.assert_array_equal(x.numpy(), jx)
+            np.testing.assert_array_equal(d.numpy(), jd)
+            n = fx.shape[0]
+            for k, r in enumerate(rows):
+                if r < n:
+                    np.testing.assert_array_equal(x[k].numpy(), fx[r].numpy())
+                    np.testing.assert_array_equal(d[k].numpy(), fd[r].numpy())
+                else:  # a row past a short batch's end
+                    assert not d[k].any()
+    skipped = list(TDataset(str(tmp_path), 16, seed=4).batches(
+        3, local_rows=[1], assemble=lambda a: a, skip=2, **kw))
+    assert len(skipped) == 2
+    np.testing.assert_array_equal(skipped[0][1].numpy(), full[2][1][1:2].numpy())
 
 
 def test_empty_directory_raises(tmp_path):
