@@ -9,7 +9,9 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. device: torch/CUDA versions, card name and power limit (nvidia-smi);
 2. build: the CUDA kernels are compiled from ``csrc/*.cu``, one nvcc per
-   source, all started together (seconds timed);
+   source, all started together (seconds timed); ``cuobjdump -sass`` of the
+   library must show wgmma (HGMMA) and TMA loads (UTMALDG) in both instances
+   of K1 and K4's bf16 body (``csrc/attention_wgmma.cu``), counts printed;
 3. kernels: K1 (packed attention), K2 (fused resblock), K3 (packed attention
    with a per-key bias, -inf keys included) and K4 (attention on (B, H, S, D))
    against their plain PyTorch versions on the card at the shapes the paths
@@ -24,8 +26,13 @@ Phases (each prints its own lines; any failure exits non-zero):
    under ``small_shape``, at the latency path's patch slice (18, 577, 3072)
    under ``latency_shape`` (K3's at (18, 289, 3072) too) and at the
    ``train_parallel`` phase's shapes under ``dp_shape`` (35, 577, 3072),
-   ``tp_shape`` (70, 577, 1536, 8 heads) and ``pp_shape`` (14, 577, 3072),
-   and K2's (2,
+   ``tp_shape`` (70, 577, 1536, 8 heads) and ``pp_shape`` (14, 577, 3072);
+   each K1 and K4 line and entry names the body and tile it took (``body``:
+   ``wgmma`` for bf16 at head dim 64, which every model shape must take;
+   ``tile``: queries per block x keys per tile), K1's ``small_shape`` entry
+   carries the profiler's device time under ``device_ms``, and K4 must
+   equal K1 bit for bit on the same q, k, v at (70, 577, 3072) and at
+   ragged sequence lengths; and K2's (2,
    96, 96, 256) entry its (2, 48, 48, 256) reading there and the latency
    path's bands plus halo, (1, 26, 48, 256) and (1, 50, 96, 256), under
    ``latency_shape_26x48`` and ``latency_shape_50x96``; K2 is also timed
@@ -246,6 +253,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -296,6 +304,7 @@ from ml_depth_pro_video_tpu_torch.geom.floorplan_viz import fast_floorplan_image
 from ml_depth_pro_video_tpu_torch.geom.ground import grid_ground_adjustment, normalize_to_ground
 from ml_depth_pro_video_tpu_torch.geom.pointcloud import PointCloud, read_ply
 from ml_depth_pro_video_tpu_torch.geom.unproject import depth_to_3d
+from ml_depth_pro_video_tpu_torch.kernels import loader
 from ml_depth_pro_video_tpu_torch.kernels.loader import load_library
 from ml_depth_pro_video_tpu_torch.models import depth_pro as depth_pro_module
 from ml_depth_pro_video_tpu_torch.models import vit as vit_module
@@ -315,6 +324,7 @@ from ml_depth_pro_video_tpu_torch.ops.attention import (
     K3,
     K4,
     _split_packed,
+    attention_body,
     attention_packed,
     attention_packed_op,
     attention_packed_reference,
@@ -380,6 +390,12 @@ K3_SHAPES = [((35 * BATCH, 433, 3072), 16), ((35 * BATCH, 289, 3072), 16),
 # a ViT-L block's attention in (B, H, S, D) at batch 2 and 1, then ragged ones
 K4_SHAPES = [(35 * BATCH, 16, 577, 64), (35, 16, 577, 64), (3, 4, 33, 32), (2, 2, 65, 16)]
 ATTN_BOUNDS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}  # share of scale, TF32 off
+ATTN_KEYS_PER_TILE = 64  # every attention body's key tile
+# the SASS opcodes counted in the wgmma body: wgmma, TMA loads, mma.sync, ldmatrix
+SASS_OPCODES = ("HGMMA", "UTMALDG", "HMMA", "LDSM")
+# K4 against K1 on the same q, k, v, bit for bit: the batch-2 patch ViT, then ragged sequence
+# lengths on a grid of 128-query blocks and on one of 64-query blocks
+K4_EQUAL_SHAPES = [((35 * BATCH, 577, 3072), 16), ((24, 129, 3072), 16), ((2, 65, 384), 2)]
 # the decoder's K2 levels at BATCH and batch 1, the latency path's bands plus halo over 2 ranks,
 # then ragged ones, then the levels the width gate keeps on the plain composition (timed beside it)
 K2_SHAPES = [(BATCH, 48, 48, 256), (BATCH, 96, 96, 256), (1, 48, 48, 256), (1, 26, 48, 256),
@@ -627,6 +643,20 @@ def report_entry(err, rel, times, shape, dtype) -> dict:
             "dtype": {torch.bfloat16: "bf16", torch.float32: "fp32"}[dtype]}
 
 
+def body_fields(body: str, rows: int) -> dict:
+    """The attention body a call took and its tile: queries per block x keys per tile."""
+    return {"body": body, "tile": f"{rows}x{ATTN_KEYS_PER_TILE}"}
+
+
+def attention_body_checked(b: int, s: int, heads: int, hd: int, dtype, tag: str) -> dict:
+    """``body_fields`` of a K1 / K4 call; a bf16 call at head dim 64 (every model
+    shape) must take the wgmma body."""
+    fields = body_fields(*attention_body(b, s, heads, hd, dtype))
+    if dtype == torch.bfloat16 and hd == 64 and fields["body"] != "wgmma":
+        raise AssertionError(f"{tag}: bf16 hd=64 took the {fields['body']} body, not wgmma")
+    return fields
+
+
 def add_to_report(report: dict, err, rel, times, shape, dtype) -> None:
     """An attention kernel's entry at its batch-2 shape: the bf16 reading at
     the top level, the fp32 (parity mode) one at the same shape under ``fp32``."""
@@ -649,10 +679,41 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count()}
 
 
+# "/*0b40*/  @!P0 HGMMA.64x64x16.F32.BF16 R24, ..." -> HGMMA
+_SASS_INSTRUCTION = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)")
+
+
+def sass_counts(sass: str, opcodes=SASS_OPCODES) -> dict:
+    """{mangled function: {opcode: count}} of ``cuobjdump -sass`` output, for
+    the opcodes named (the part of each instruction before its first dot)."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if m := re.search(r"Function : (\S+)", line):
+            fn = counts.setdefault(m.group(1), dict.fromkeys(opcodes, 0))
+        elif fn is not None and (m := _SASS_INSTRUCTION.match(line)):
+            if m.group(1) in fn:
+                fn[m.group(1)] += 1
+    return counts
+
+
+def check_sass() -> None:
+    """The built library's SASS: K1 and K4's bf16 hd=64 body must run on the
+    tensor cores through wgmma (HGMMA) and load its tiles by TMA (UTMALDG)."""
+    tool = Path(loader._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(loader.library_path())], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    wgmma = {fn: c for fn, c in sass_counts(sass).items() if "attention_wgmma_kernel" in fn}
+    for fn, c in sorted(wgmma.items()):
+        log(f"[build] cuobjdump -sass {fn}: " + ", ".join(f"{n} {op}" for op, n in c.items()))
+    if len(wgmma) != 2 or not all(c["HGMMA"] and c["UTMALDG"] for c in wgmma.values()):
+        raise AssertionError(f"the wgmma body's SASS lacks HGMMA or UTMALDG: {wgmma}")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     load_library()
     log(f"[build] kernels built from csrc/*.cu and loaded in {time.perf_counter() - t0:.1f} s")
+    check_sass()
 
 
 def _check(name: str, rel: float, limit: float, line: str) -> None:
@@ -665,36 +726,44 @@ def kernels_k1(g) -> dict:
     report = {}
     for shape, heads in K1_SHAPES:
         base = torch.randn(shape, generator=g, device="cuda")
+        b, s, d3 = shape
+        hd = d3 // 3 // heads
         for dtype in (torch.bfloat16, torch.float32):
             qkv = base.to(dtype)
             got = attention_packed(qkv, heads)
             ref = attention_packed_reference(qkv, heads)
             torch.cuda.synchronize()
             err, rel = rel_err(got, ref)
-            line = (f"[kernels] K1 attention_packed {dtype} {shape} heads={heads}: "
+            fields = attention_body_checked(b, s, heads, hd, dtype, f"K1 {dtype} {shape}")
+            line = (f"[kernels] K1 attention_packed {dtype} {shape} heads={heads} "
+                    f"[{fields['body']} body, {fields['tile']} tile]: "
                     f"max_abs_err={err:.3e} rel={rel:.3e} (bound {ATTN_BOUNDS[dtype]:g})")
-            if shape[1] == 577:
-                b, s, d3 = shape
-                times, suffix = timed(lambda: attention_packed(qkv, heads),
-                                      lambda: attention_packed_reference(qkv, heads),
+            if s == 577:
+                kernel = lambda: attention_packed(qkv, heads)  # noqa: E731
+                times, suffix = timed(kernel, lambda: attention_packed_reference(qkv, heads),
                                       sdpa_on(*_split_packed(qkv, heads)),
-                                      attention_flops(b, heads, s, d3 // 3 // heads),
-                                      nbytes(qkv, got), dtype)
+                                      attention_flops(b, heads, s, hd), nbytes(qkv, got), dtype)
                 line += suffix
                 if shape == (35 * BATCH, 577, 3072):
-                    add_to_report(report, err, rel, times, shape, dtype)
+                    add_to_report(report, err, rel, {**times, **fields}, shape, dtype)
                 elif dtype == torch.bfloat16 and shape in K1_REPORT:
-                    report[K1_REPORT[shape]] = report_entry(err, rel, times, shape, dtype)
+                    if K1_REPORT[shape] == "small_shape":  # host-bound: its device time apart
+                        times["device_ms"] = device_ms(kernel)
+                        line += f"; device {times['device_ms']:.4f} ms"
+                    report[K1_REPORT[shape]] = report_entry(err, rel, {**times, **fields}, shape,
+                                                            dtype)
             _check(f"K1 {dtype} {shape}", rel, ATTN_BOUNDS[dtype], line)
     # K4 is K1's kernel body read through other strides: the same bits
-    qkv = torch.randn((35 * BATCH, 577, 3072), generator=g, device="cuda").bfloat16()
-    q, k, v = (t.contiguous() for t in _split_packed(qkv, 16))
-    same = torch.equal(attention_packed(qkv, 16),
-                       multi_head_attention(q, k, v).transpose(1, 2).reshape(qkv.shape[0], 577,
-                                                                             1024))
-    log(f"[kernels] K4 on the unpacked q, k, v equals K1 on the packed qkv bit for bit: {same}")
-    if not same:
-        raise AssertionError("K4 and K1 disagree on the same data")
+    for shape, heads in K4_EQUAL_SHAPES:
+        b, s, d3 = shape
+        qkv = torch.randn(shape, generator=g, device="cuda").bfloat16()
+        q, k, v = (t.contiguous() for t in _split_packed(qkv, heads))
+        same = torch.equal(attention_packed(qkv, heads),
+                           multi_head_attention(q, k, v).transpose(1, 2).reshape(b, s, d3 // 3))
+        log(f"[kernels] K4 on the unpacked q, k, v equals K1 on the packed qkv {shape} "
+            f"heads={heads} bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"K4 and K1 disagree on the same data at {shape}")
     return report
 
 
@@ -751,21 +820,24 @@ def kernels_k4(g) -> dict:
     report = {}
     for shape in K4_SHAPES:
         bases = [torch.randn(shape, generator=g, device="cuda") for _ in range(3)]
+        b, h, s, hd = shape
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (t.to(dtype) for t in bases)
             got = multi_head_attention(q, k, v)
             ref = attention_reference(q, k, v)
             torch.cuda.synchronize()
             err, rel = rel_err(got, ref)
-            line = (f"[kernels] K4 attention_bhsd {dtype} {shape}: max_abs_err={err:.3e} "
-                    f"rel={rel:.3e} (bound {ATTN_BOUNDS[dtype]:g})")
-            if shape[2] == 577:
+            fields = attention_body_checked(b, s, h, hd, dtype, f"K4 {dtype} {shape}")
+            line = (f"[kernels] K4 attention_bhsd {dtype} {shape} [{fields['body']} body, "
+                    f"{fields['tile']} tile]: max_abs_err={err:.3e} rel={rel:.3e} "
+                    f"(bound {ATTN_BOUNDS[dtype]:g})")
+            if s == 577:
                 times, suffix = timed(lambda: multi_head_attention(q, k, v),
                                       lambda: attention_reference(q, k, v), sdpa_on(q, k, v),
                                       attention_flops(*shape), nbytes(q, k, v, got), dtype)
                 line += suffix
-                if shape[0] == 35 * BATCH:
-                    add_to_report(report, err, rel, times, shape, dtype)
+                if b == 35 * BATCH:
+                    add_to_report(report, err, rel, {**times, **fields}, shape, dtype)
             _check(f"K4 {dtype} {shape}", rel, ATTN_BOUNDS[dtype], line)
     return report
 

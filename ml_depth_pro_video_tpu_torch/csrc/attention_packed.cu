@@ -1,5 +1,6 @@
 // Fused multi-head attention, read through per-tensor (batch, head, row)
-// strides: one kernel body serves three entry points.
+// strides: the entry points of three kernels, their dispatch, and the bodies
+// of every instance but one.
 //
 // Replaces three Pallas kernels of ml_depth_pro_video_tpu/ops/attention.py:
 // - K1 `attention_packed_forward` <- flash_attention_packed (body
@@ -13,6 +14,10 @@
 //   the scaled scores (ToMe proportional attention: log token sizes);
 // - K4 `attention_bhsd_forward` <- _flash_attention (body `_flash_kernel`):
 //   the same function on separate q, k, v and out of shape (B, H, S, hd).
+// Dispatch (`launch_hd`): bf16 at hd = 64 without a bias -- K1 and K4 on
+// the model's shapes -- takes the wgmma + TMA body of
+// csrc/attention_wgmma.cu; K3, the fp32 parity mode and hd 16, 32 and 128
+// take the bodies below.
 // Scores and softmax are fp32; keys >= S are masked in the kernel (no padded
 // bias row or padded copy of the inputs, unlike the TPU kernels).
 //
@@ -23,24 +28,23 @@
 // bound it -- but only while the (B*H, S, S) scores stay out of device
 // memory. The plain version writes and re-reads them in fp32.
 //
-// Design: one block per (query tile, head, batch item), 4 warps; the block
-// loops over 64-key tiles with an fp32 online softmax, so any S works and no
-// score leaves the SM. Ragged query and key tiles are zero-filled on load
+// Design of the bodies below: one block per (query tile, head, batch item),
+// 4 warps; the block loops over 64-key tiles with an fp32 online softmax, so
+// any S works and no score leaves the SM. Ragged query and key tiles are zero-filled on load
 // and masked in the softmax. The running max is guarded so that a key tile
 // (or a whole row) whose scores are all -inf -- a -inf bias -- gives 0, not
 // exp(-inf - -inf) = NaN; a row with no finite score at all writes zeros.
-// - bf16 (the production path): the FlashAttention-2 tiling on the tensor
-//   cores. mma.sync m16n8k16 (bf16 in, fp32 accumulate) with the scores,
-//   the probabilities and the output accumulator kept in registers (the
-//   score accumulator fragment is re-packed as the A operand of P.V); K and
-//   V tiles ride a cp.async ring in shared memory and are read with
-//   ldmatrix (V transposed on the fly). A warp that owns 16 query rows
+// - bf16 (K3 on the model's shapes; hd 16, 32, 128): the FlashAttention-2
+//   tiling on the tensor cores. mma.sync m16n8k16 (bf16 in, fp32 accumulate)
+//   with the scores, the probabilities and the output accumulator kept in
+//   registers (the score accumulator fragment is re-packed as the A operand
+//   of P.V); K and V tiles ride a cp.async ring in shared memory and are read
+//   with ldmatrix (V transposed on the fly). A warp that owns 16 query rows
 //   reads each K and V fragment for one mma pair, and those shared-memory
 //   reads weigh as much as the tensor-core time; so at hd = 64 a warp owns
 //   32 rows (128 queries per block) and uses each fragment twice; a grid
 //   too small to fill the card with such blocks keeps 64-query blocks
-//   (chosen from the shape alone, so K4 and K1 run the same instance on
-//   the same data). S = 577 is
+//   (`wide_blocks`, chosen from the shape alone). S = 577 is
 //   9 * 64 + 1: warps whose rows all lie past S skip their compute, a ragged
 //   rest of at most 64 rows takes a 64-query block, and only the last key
 //   tile pays for the key mask. That last tile still computes all of its
@@ -58,7 +62,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention.cuh"
+
 namespace {
+
+using depth_pro_attention::Layout;
+using depth_pro_attention::wide_blocks;
 
 using bf16 = __nv_bfloat16;
 
@@ -633,16 +642,6 @@ __global__ void __launch_bounds__(NTHREADS, 2) attention_fp32_kernel(const Args<
 
 // ---------------------------------------------------------------------------
 
-// The tensors of one call, as untyped pointers and element strides.
-struct Layout {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  const float* bias;
-  long long in_b, in_h, in_r, out_b, out_h, out_r;
-};
-
 template <typename T, typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, int rows, const Layout& L, int B, int S, int H,
                    float scale, cudaStream_t stream) {
@@ -657,30 +656,38 @@ cudaError_t launch(Kernel kernel, size_t smem, int rows, const Layout& L, int B,
   return cudaGetLastError();
 }
 
-// Whether a bf16 hd = 64 call takes 128-query blocks (32 rows per warp): only
-// if they fill every SM's two block slots; a smaller grid spreads wider over
-// the card in 64-query blocks. A function of the shape alone, never of the layout.
-bool wide_blocks(int B, int S, int H, int sm_count) {
-  return (long long)B * H * ((S + 127) / 128) >= 2LL * sm_count;
+// The body a call takes, from its shape, dtype and bias alone (never from its
+// layout, so K1 and K4 take the same one on the same data): 0 the fp32 body,
+// 1 the mma.sync body, 2 the wgmma body; *rows, its queries per block.
+int body_of(int B, int S, int H, int hd, bool is_bf16, bool bias, int sm_count, int* rows) {
+  const bool wide = hd == 64 && wide_blocks(B, S, H, sm_count);
+  *rows = is_bf16 && wide ? 128 : 64;
+  if (!is_bf16) return 0;
+  return hd == 64 && !bias ? 2 : 1;
 }
 
 template <int HD, bool BIAS>
-cudaError_t launch_hd(bool is_bf16, const Layout& L, int B, int S, int H, float scale,
-                      int sm_count, cudaStream_t stream) {
+int launch_hd(bool is_bf16, bool packed, const Layout& L, int B, int S, int H, float scale,
+              int sm_count, cudaStream_t stream) {
   if (!is_bf16)
     return launch<float>(attention_fp32_kernel<HD, BIAS>, Fp32Geometry<HD>::kBytes, BQ, L, B, S,
                          H, scale, stream);
-  if constexpr (HD == 64) {
-    if (wide_blocks(B, S, H, sm_count))
-      return launch<bf16>(attention_bf16_kernel<HD, BIAS, 2>, Bf16Geometry<HD, BIAS, 2>::kBytes,
-                          128, L, B, S, H, scale, stream);
+  if constexpr (HD == 64 && !BIAS) {
+    return depth_pro_attention::launch_wgmma(L, packed, B, S, H, scale,
+                                             wide_blocks(B, S, H, sm_count), stream);
+  } else {
+    if constexpr (HD == 64) {
+      if (wide_blocks(B, S, H, sm_count))
+        return launch<bf16>(attention_bf16_kernel<HD, BIAS, 2>,
+                            Bf16Geometry<HD, BIAS, 2>::kBytes, 128, L, B, S, H, scale, stream);
+    }
+    return launch<bf16>(attention_bf16_kernel<HD, BIAS, 1>, Bf16Geometry<HD, BIAS, 1>::kBytes,
+                        64, L, B, S, H, scale, stream);
   }
-  return launch<bf16>(attention_bf16_kernel<HD, BIAS, 1>, Bf16Geometry<HD, BIAS, 1>::kBytes, 64,
-                      L, B, S, H, scale, stream);
 }
 
 template <bool BIAS>
-int dispatch(const Layout& L, int B, int S, int H, int hd, int is_bf16, float scale,
+int dispatch(const Layout& L, bool packed, int B, int S, int H, int hd, int is_bf16, float scale,
              int device, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
   cudaError_t e = cudaSetDevice(device);
@@ -690,13 +697,12 @@ int dispatch(const Layout& L, int B, int S, int H, int hd, int is_bf16, float sc
   if (e != cudaSuccess) return e;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: e = launch_hd<16, BIAS>(is_bf16, L, B, S, H, scale, sms, st); break;
-    case 32: e = launch_hd<32, BIAS>(is_bf16, L, B, S, H, scale, sms, st); break;
-    case 64: e = launch_hd<64, BIAS>(is_bf16, L, B, S, H, scale, sms, st); break;
-    case 128: e = launch_hd<128, BIAS>(is_bf16, L, B, S, H, scale, sms, st); break;
-    default: e = cudaErrorInvalidValue;
+    case 16: return launch_hd<16, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
+    case 32: return launch_hd<32, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
+    case 64: return launch_hd<64, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
+    case 128: return launch_hd<128, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
+    default: return cudaErrorInvalidValue;
   }
-  return (int)e;
 }
 
 // packed head-contiguous qkv (B, S, 3*H*hd) -> out (B, S, H*hd)
@@ -716,8 +722,8 @@ Layout packed_layout(const void* qkv, const float* bias, void* out, int S, int H
 extern "C" int attention_packed_forward(const void* qkv, void* out, int B, int S, int H,
                                         int hd, int is_bf16, float scale, int device,
                                         void* stream) {
-  return dispatch<false>(packed_layout(qkv, nullptr, out, S, H, hd, is_bf16), B, S, H, hd,
-                         is_bf16, scale, device, stream);
+  return dispatch<false>(packed_layout(qkv, nullptr, out, S, H, hd, is_bf16), true, B, S, H,
+                         hd, is_bf16, scale, device, stream);
 }
 
 // K3. As K1, plus bias: (B, S) fp32 contiguous, added to the scaled scores per key.
@@ -725,8 +731,8 @@ extern "C" int attention_packed_bias_forward(const void* qkv, const void* bias, 
                                              int B, int S, int H, int hd, int is_bf16,
                                              float scale, int device, void* stream) {
   return dispatch<true>(
-      packed_layout(qkv, static_cast<const float*>(bias), out, S, H, hd, is_bf16), B, S, H,
-      hd, is_bf16, scale, device, stream);
+      packed_layout(qkv, static_cast<const float*>(bias), out, S, H, hd, is_bf16), true, B, S,
+      H, hd, is_bf16, scale, device, stream);
 }
 
 // K4. q, k, v, out: (B, H, S, hd) contiguous, 16-byte aligned, one dtype.
@@ -735,5 +741,15 @@ extern "C" int attention_bhsd_forward(const void* q, const void* k, const void* 
                                       int device, void* stream) {
   const long long hs = (long long)S * hd;
   const Layout L{q, k, v, out, nullptr, H * hs, hs, hd, H * hs, hs, hd};
-  return dispatch<false>(L, B, S, H, hd, is_bf16, scale, device, stream);
+  return dispatch<false>(L, false, B, S, H, hd, is_bf16, scale, device, stream);
+}
+
+// The body a call of this shape takes on `device` (*body: 0 fp32, 1 mma.sync,
+// 2 wgmma) and its queries per block (*rows). Returns a cudaError_t code.
+extern "C" int attention_kernel_body(int B, int S, int H, int hd, int is_bf16, int bias,
+                                     int device, int* body, int* rows) {
+  int sms = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *body = body_of(B, S, H, hd, is_bf16 != 0, bias != 0, sms, rows);
+  return (int)e;
 }

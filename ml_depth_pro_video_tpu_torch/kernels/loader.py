@@ -8,8 +8,9 @@ The library lands in ``build/torch_kernels/<hash>/`` under the repository
 root (an installed copy, outside a checkout, uses
 ``ml_depth_pro_video_tpu_torch/torch_kernels/<hash>/`` under
 ``$XDG_CACHE_HOME``, by default ``~/.cache``),
-keyed by a hash of the sources and the flags, so an edited kernel
-is rebuilt and an unchanged one is reused. A failed build raises; there
+keyed by a hash of the sources, the headers they include (``csrc/*.cuh``)
+and the flags, so an edited kernel or header is rebuilt and an unchanged
+one is reused. A failed build raises; there
 is no fallback.
 
 Each :class:`Kernel` is launched from the CUDA kernel of its ``torch.library``
@@ -61,6 +62,8 @@ _SIGNATURES = {
     "attention_bhsd_forward": ((_p, _p, _p, _p) + _ATTN_ARGS, _i),
     "resblock_forward": ((_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p), _i),  # B, H, W, C, device
     "resblock_tile": ((_i, _i, _i, _i, _pi, _pi), _i),  # B, H, W, device -> rows, columns
+    # B, S, H, hd, is_bf16, bias, device -> body, queries per block
+    "attention_kernel_body": ((_i, _i, _i, _i, _i, _i, _i, _pi, _pi), _i),
 }
 
 # names of the cudaError_t codes a launch can plausibly return
@@ -68,7 +71,17 @@ _CUDA_ERRORS = {1: "cudaErrorInvalidValue", 2: "cudaErrorMemoryAllocation",
                 9: "cudaErrorInvalidConfiguration", 98: "cudaErrorInvalidDeviceFunction",
                 100: "cudaErrorNoDevice", 101: "cudaErrorInvalidDevice",
                 209: "cudaErrorNoKernelImageForDevice", 700: "cudaErrorIllegalAddress",
-                701: "cudaErrorLaunchOutOfResources"}
+                701: "cudaErrorLaunchOutOfResources", 801: "cudaErrorNotSupported"}
+# csrc/attention.cuh::kTensorMapError: cuTensorMapEncodeTiled refused a tensor map
+# and returned (code - TENSOR_MAP_ERROR) as its CUresult
+TENSOR_MAP_ERROR = 10000
+
+
+def error_name(err: int) -> str:
+    """The name of a code an entry point returned."""
+    if err >= TENSOR_MAP_ERROR:
+        return f"cuTensorMapEncodeTiled: CUresult {err - TENSOR_MAP_ERROR}"
+    return _CUDA_ERRORS.get(err, "cudaError")
 
 
 class KernelBuildError(RuntimeError):
@@ -93,9 +106,13 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16] / LIBRARY_NAME
@@ -156,6 +173,5 @@ class Kernel:
     def launch(self, *args) -> None:
         err = getattr(load_library(), self.symbol)(*args)
         if err != 0:
-            raise KernelLaunchError(
-                f"{self.name}: launch returned {_CUDA_ERRORS.get(err, 'cudaError')} ({err})")
+            raise KernelLaunchError(f"{self.name}: launch returned {error_name(err)} ({err})")
         self.launches += 1

@@ -5,13 +5,18 @@ Twin of ``ml_depth_pro_video_tpu/ops/attention.py``. Packed qkv is (B, S, 3*D)
 as the ViT's qkv projection writes it, columns ordered
 ``[h0:(q,k,v) | h1:(q,k,v) | ...]``; its output is (B, S, D) head-major.
 
-Three hand-written CUDA kernels (``csrc/attention_packed.cu``, one kernel
-body read through per-tensor strides) replace the Pallas kernels:
+Three hand-written CUDA kernels (entry points and dispatch in
+``csrc/attention_packed.cu``, each body read through per-tensor strides)
+replace the Pallas kernels:
 
 - K1 ``flash_attention_packed``: packed qkv, no bias (the exact path);
 - K3 ``flash_attention_packed_bias``: packed qkv plus an fp32 per-key score
   bias (B, S) (ToMe proportional attention: log token sizes);
 - K4 ``_flash_attention``: separate q, k, v of shape (B, H, S, D).
+
+In bf16 at head dim 64, K1 and K4 run the wgmma + TMA body of
+``csrc/attention_wgmma.cu``; K3, fp32 and the other head dims the bodies of
+``csrc/attention_packed.cu`` (``attention_body`` says which a shape takes).
 
 Each kernel is a ``torch.library`` custom operator, so that a traced graph
 (``torch.export``, ``torch.compile``) names the kernel it runs:
@@ -33,15 +38,19 @@ import ctypes
 
 import torch
 
-from ..kernels.loader import Kernel
+from ..kernels.loader import Kernel, KernelLaunchError, load_library
 
 _SOURCE = "ml_depth_pro_video_tpu_torch/csrc/attention_packed.cu"
-K1 = Kernel(name="attention_packed", symbol="attention_packed_forward", source=_SOURCE,
+_WGMMA_SOURCE = "ml_depth_pro_video_tpu_torch/csrc/attention_wgmma.cu"  # K1, K4 in bf16 at hd 64
+K1 = Kernel(name="attention_packed", symbol="attention_packed_forward", source=_WGMMA_SOURCE,
             replaces="ml_depth_pro_video_tpu/ops/attention.py:211")
 K3 = Kernel(name="attention_packed_bias", symbol="attention_packed_bias_forward",
             source=_SOURCE, replaces="ml_depth_pro_video_tpu/ops/attention.py:167")
-K4 = Kernel(name="attention_bhsd", symbol="attention_bhsd_forward", source=_SOURCE,
+K4 = Kernel(name="attention_bhsd", symbol="attention_bhsd_forward", source=_WGMMA_SOURCE,
             replaces="ml_depth_pro_video_tpu/ops/attention.py:74")
+
+# csrc/attention_packed.cu::body_of's codes
+BODIES = {0: "fp32", 1: "mma.sync", 2: "wgmma"}
 
 HEAD_DIMS = (16, 32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -50,6 +59,20 @@ KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 def kernel_takes(hd: int, dtype: torch.dtype) -> bool:
     """Whether K1, K3 and K4 compute attention at head dim ``hd`` in ``dtype``."""
     return hd in HEAD_DIMS and dtype in KERNEL_DTYPES
+
+
+def attention_body(batch: int, s: int, heads: int, hd: int, dtype: torch.dtype,
+                   bias: bool = False, device: int = 0) -> tuple[str, int]:
+    """The body a K1 / K3 (``bias``) / K4 call of this shape takes on CUDA
+    device ``device`` (``"wgmma"``, ``"mma.sync"`` or ``"fp32"``) and its
+    queries per block: a function of the shape alone, the same for K1 and K4."""
+    body, rows = ctypes.c_int(), ctypes.c_int()
+    err = load_library().attention_kernel_body(batch, s, heads, hd,
+                                               int(dtype == torch.bfloat16), int(bias), device,
+                                               ctypes.byref(body), ctypes.byref(rows))
+    if err:
+        raise KernelLaunchError(f"attention_kernel_body returned cudaError {err}")
+    return BODIES[body.value], rows.value
 
 
 # ---------------------------------------------------------------------------

@@ -80,7 +80,7 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 GROUPS = [
     ("K3 biased attention (csrc/attention_packed.cu)",
      r"attention_(bf16|fp32)_kernel<\d+, true[,>]"),
-    ("K1 attention (csrc/attention_packed.cu)", r"attention_(bf16|fp32)_kernel"),
+    ("K1 attention (csrc/attention_packed.cu)", r"attention_(bf16|fp32|wgmma)_kernel"),
     ("K2 resblock (csrc/resblock.cu)", r"resblock_kernel"),
     ("conv (cuDNN)", r"conv|fprop|dgrad|wgrad|cudnn"),
     ("GEMM (cuBLAS)", r"nvjet|gemm|cutlass|xmma"),

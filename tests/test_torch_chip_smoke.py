@@ -96,6 +96,60 @@ def test_unpacked_attention_moves_the_same_bytes_as_packed():
     assert chip_smoke.nbytes(*qkvo) == _packed(70, 577, 16, 64, torch.bfloat16, False)
 
 
+def test_attention_entries_name_their_body_and_tile():
+    """The fields each K1 and K4 line and JSON entry carries: the body the call
+    took and its tile, queries per block x keys per tile."""
+    assert chip_smoke.body_fields("wgmma", 128) == {"body": "wgmma", "tile": "128x64"}
+    assert chip_smoke.body_fields("mma.sync", 64) == {"body": "mma.sync", "tile": "64x64"}
+
+
+@pytest.mark.parametrize("body,hd,dtype,fails", [("wgmma", 64, torch.bfloat16, False),
+                                                 ("mma.sync", 64, torch.bfloat16, True),
+                                                 ("mma.sync", 32, torch.bfloat16, False),
+                                                 ("fp32", 64, torch.float32, False)])
+def test_bf16_head_dim_64_must_take_the_wgmma_body(monkeypatch, body, hd, dtype, fails):
+    monkeypatch.setattr(chip_smoke, "attention_body", lambda *args: (body, 128))
+    if fails:
+        with pytest.raises(AssertionError, match="not wgmma"):
+            chip_smoke.attention_body_checked(70, 577, 16, hd, dtype, "K1")
+    else:
+        assert chip_smoke.attention_body_checked(70, 577, 16, hd, dtype, "K1") == {
+            "body": body, "tile": "128x64"}
+
+
+_SASS = """
+	code for sm_90a
+		Function : _ZN19depth_pro_attention12_GLOBAL__N_122attention_wgmma_kernelILi2EEEvS1_
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;        /* 0x00000a00ff017b82 */
+        /*0b40*/              @!P0 UTMALDG.4D [UR8], [UR16] ;      /* 0x000000080800 */
+        /*0b50*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0b60*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR12], R24, gsb0 ;
+		Function : _ZN12_GLOBAL__N_121attention_bf16_kernelILi64ELb1ELi2EEEvNS_4ArgsI13__nv_bfloat16EE
+        /*0000*/                   LDSM.16.M88.4 R4, [R2] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+        /*0020*/              @UP0 HMMA.16816.F32.BF16 R8, R4, R14, R8 ;
+"""
+
+
+def test_sass_counts_read_each_function_s_opcodes():
+    """``cuobjdump -sass`` output, counted per function: predicated
+    instructions count, modifiers after the first dot do not matter."""
+    counts = chip_smoke.sass_counts(_SASS)
+    assert list(counts.values()) == [{"HGMMA": 2, "UTMALDG": 1, "HMMA": 0, "LDSM": 0},
+                                     {"HGMMA": 0, "UTMALDG": 0, "HMMA": 2, "LDSM": 1}]
+    assert "attention_wgmma_kernel" in next(iter(counts))
+
+
+def test_k4_equals_k1_at_the_model_shape_and_ragged_lengths():
+    shapes = dict(chip_smoke.K4_EQUAL_SHAPES)
+    assert shapes[(70, 577, 3072)] == 16
+    ragged = [(b, heads) for (b, s, _), heads in shapes.items() if s != 577 and s % 64]
+    # one grid of 128-query blocks (24 x 16 heads), one of 64-query blocks (2 x 2)
+    assert sorted(ragged) == [(2, 2), (24, 16)]
+    assert chip_smoke.K1_REPORT[(chip_smoke.BATCH, 577, 3072)] == "small_shape"
+
+
 def test_median_takes_more_events_for_a_short_kernel(monkeypatch):
     """Under ``short_ms`` the median is over ``short_iters`` event pairs, not
     ``iters``; each pair brackets ``calls`` back-to-back calls."""

@@ -6,6 +6,10 @@ On a machine with the card run
 ``python -m pytest --noconftest tests/test_torch_kernels.py`` (the suite's
 conftest imports jax, which that machine need not have);
 ``chip_smoke.py`` covers the same ground at the model's full shapes.
+K1 and K4 in bf16 at hd 64 run the wgmma + TMA body (``-k wgmma`` picks
+its own cases: run them under ``timeout`` after a change to it, since a
+fault in its mbarrier ring traps only after 20 s); each case reads the
+body a shape takes from the library's dispatch (``attention_body``).
 Bounds: the attention kernels (K1, K3, K4) fp32 1e-5 of scale (TF32 off),
 bf16 1e-2; K2 bf16 < 2e-2 (the JAX package's resblock band,
 tests/test_ops.py:263).
@@ -49,8 +53,9 @@ def test_attention_kernel_matches_plain(cuda, shape, heads, dtype, bound):
 
 
 def _wide_grid(batch, heads, s):
-    """Whether a bf16 hd=64 call of this shape takes the 128-query blocks (32
-    rows per warp) on this card: csrc/attention_packed.cu::wide_blocks."""
+    """Whether a bf16 hd=64 call of this shape takes the 128-query blocks (two
+    warpgroups of the wgmma body without a bias, 32 rows per warp of the
+    mma.sync body with one) on this card: csrc/attention.cuh::wide_blocks."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return batch * heads * -(-s // 128) >= 2 * sms
 
@@ -67,15 +72,23 @@ def _packed_case(cuda, batch, s, heads, hd, dtype, with_bias):
     return _rel(got, A.attention_packed_reference(qkv, heads, bias))
 
 
-# the edges of the 64-key tiles and of the 64- and 128-query blocks, K1 and K3 at hd 64:
-# (1, 2) is a grid that stays on 64-query blocks, (24, 16) one that takes the 128-query
-# blocks on a card of up to 192 SMs (the test checks that it does on this one)
-@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 191, 257])
+# the edges of the 64-key tiles, of the wgmma body's 64-row warpgroups and of the 64- and
+# 128-query blocks, K1 and K3 at hd 64: (1, 2) is a grid that stays on 64-query blocks,
+# (24, 16) one that takes the 128-query blocks on a card of up to 192 SMs (the test checks
+# that it does on this one); S = 1 and 65 are where an mbarrier's phase or byte count would
+# hang the wgmma body, 577 the model's
+WGMMA_EDGES = [1, 63, 64, 65, 127, 128, 129, 191, 257, 577]
+
+
+@pytest.mark.parametrize("s", WGMMA_EDGES)
 @pytest.mark.parametrize("batch,heads,wide", [(1, 2, False), (24, 16, True)])
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
 def test_attention_kernel_tile_edges(cuda, s, batch, heads, wide, with_bias, dtype, bound):
     assert _wide_grid(batch, heads, s) == wide
+    body = "fp32" if dtype == torch.float32 else "mma.sync" if with_bias else "wgmma"
+    rows = 128 if wide and dtype == torch.bfloat16 else 64
+    assert A.attention_body(batch, s, heads, 64, dtype, with_bias) == (body, rows)
     assert _packed_case(cuda, batch, s, heads, 64, dtype, with_bias) <= bound
 
 
@@ -189,6 +202,70 @@ def test_unpacked_kernel_equals_packed_kernel(cuda, dtype):
     q, k, v = (t.contiguous() for t in A._split_packed(qkv, heads))
     packed = A.attention_packed(qkv, heads)
     unpacked = A.multi_head_attention(q, k, v).transpose(1, 2).reshape(b, s, heads * hd)
+    torch.cuda.synchronize()
+    assert torch.equal(packed, unpacked)
+
+
+@pytest.mark.parametrize("s", WGMMA_EDGES)
+@pytest.mark.parametrize("batch,heads,rows", [(1, 2, 64), (24, 16, 128)])
+def test_wgmma_body_tile_edges_unpacked(cuda, s, batch, heads, rows):
+    """K4 at the tile edges of ``test_attention_kernel_tile_edges``."""
+    assert A.attention_body(batch, s, heads, 64, torch.bfloat16) == ("wgmma", rows)
+    q, k, v = (torch.randn((batch, heads, s, 64), generator=cuda, device="cuda").bfloat16()
+               for _ in range(3))
+    before = A.K4.launches
+    got = A.multi_head_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert A.K4.launches == before + 1 and torch.isfinite(got).all()
+    assert _rel(got, A.attention_reference(q, k, v)) <= 1e-2
+
+
+def _chip_smoke_k1_shapes():
+    import chip_smoke
+
+    return chip_smoke.K1_SHAPES
+
+
+@pytest.mark.parametrize("index", range(11))
+def test_k1_at_every_chip_smoke_shape(cuda, index):
+    """Each K1 shape ``chip_smoke.py`` holds (the paths' and the ragged ones) in
+    bf16: the wgmma body at head dim 64, PR 4's mma.sync body at 16 and 32."""
+    shapes = _chip_smoke_k1_shapes()
+    assert len(shapes) == 11
+    (b, s, d3), heads = shapes[index]
+    hd = d3 // 3 // heads
+    body, _ = A.attention_body(b, s, heads, hd, torch.bfloat16)
+    assert body == ("wgmma" if hd == 64 else "mma.sync")
+    assert _packed_case(cuda, b, s, heads, hd, torch.bfloat16, False) <= 1e-2
+
+
+# the model's shapes: the patch ViT at batch 2 and 1, the image ViT at batch 2 and 1, the
+# latency slice over 2 ranks, dp, tp and pp's per-rank shapes (B, S, heads)
+MODEL_SHAPES = [(70, 577, 16), (35, 577, 16), (2, 577, 16), (1, 577, 16), (18, 577, 16),
+                (70, 577, 8), (14, 577, 16)]
+
+
+@pytest.mark.parametrize("batch,s,heads", MODEL_SHAPES)
+def test_model_shapes_take_the_wgmma_body(cuda, batch, s, heads):
+    """K1 and K4 at every model shape take the wgmma body, read from the
+    library's own dispatch (``attention_kernel_body``); K3 and fp32 do not."""
+    rows = 128 if _wide_grid(batch, heads, s) else 64
+    assert A.attention_body(batch, s, heads, 64, torch.bfloat16) == ("wgmma", rows)
+    assert A.attention_body(batch, s, heads, 64, torch.bfloat16, bias=True) == ("mma.sync", rows)
+    assert A.attention_body(batch, s, heads, 64, torch.float32) == ("fp32", 64)
+
+
+@pytest.mark.parametrize("shape,heads", [((70, 577, 3072), 16), ((24, 129, 3072), 16),
+                                         ((1, 65, 384), 2), ((3, 1, 384), 2)])
+def test_wgmma_body_k4_equals_k1(cuda, shape, heads):
+    """K4 and K1 run the same wgmma instance on the same data (the tile is
+    chosen from the shape alone): the same bits, at the model's shape and at
+    ragged S on both block sizes."""
+    b, s, d3 = shape
+    qkv = torch.randn(shape, generator=cuda, device="cuda").bfloat16()
+    q, k, v = (t.contiguous() for t in A._split_packed(qkv, heads))
+    packed = A.attention_packed(qkv, heads)
+    unpacked = A.multi_head_attention(q, k, v).transpose(1, 2).reshape(b, s, d3 // 3)
     torch.cuda.synchronize()
     assert torch.equal(packed, unpacked)
 

@@ -33,6 +33,13 @@ def test_busy_in_is_the_clipped_union(intervals, lo, hi, busy):
      "K3 biased attention (csrc/attention_packed.cu)"),
     ("void (anonymous namespace)::attention_bf16_kernel<64, false, 2>((anonymous namespace)::Args)",
      "K1 attention (csrc/attention_packed.cu)"),
+    # the wgmma body of K1 and K4 (csrc/attention_wgmma.cu), both block sizes
+    ("void depth_pro_attention::(anonymous namespace)::attention_wgmma_kernel<2>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, depth_pro_attention::(anonymous namespace)::WgArgs)",
+     "K1 attention (csrc/attention_packed.cu)"),
+    ("void depth_pro_attention::(anonymous namespace)::attention_wgmma_kernel<1>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, depth_pro_attention::(anonymous namespace)::WgArgs)",
+     "K1 attention (csrc/attention_packed.cu)"),
     ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<float>",
      "sort / scatter / gather (ToMe merge and others)"),
     ("resblock_kernel", "K2 resblock (csrc/resblock.cu)"),
