@@ -10,8 +10,11 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. device: torch/CUDA versions, card name and power limit (nvidia-smi);
 2. build: the CUDA kernels are compiled from ``csrc/*.cu``, one nvcc per
    source, all started together (seconds timed); ``cuobjdump -sass`` of the
-   library must show wgmma (HGMMA) and TMA loads (UTMALDG) in both instances
-   of K1 and K4's bf16 body (``csrc/attention_wgmma.cu``), counts printed;
+   library must show wgmma (HGMMA), TMA loads (UTMALDG) and no mma.sync
+   (HMMA) in the four instances of K1, K3 and K4's bf16 body
+   (``csrc/attention_wgmma.cu``: 64 or 128 queries a block, with or without
+   a bias) and in the two of K2's wgmma body (``csrc/resblock_wgmma.cu``),
+   counts printed;
 3. kernels: K1 (packed attention), K2 (fused resblock), K3 (packed attention
    with a per-key bias, -inf keys included) and K4 (attention on (B, H, S, D))
    against their plain PyTorch versions on the card at the shapes the paths
@@ -27,9 +30,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    under ``latency_shape`` (K3's at (18, 289, 3072) too) and at the
    ``train_parallel`` phase's shapes under ``dp_shape`` (35, 577, 3072),
    ``tp_shape`` (70, 577, 1536, 8 heads) and ``pp_shape`` (14, 577, 3072);
-   each K1 and K4 line and entry names the body and tile it took (``body``:
-   ``wgmma`` for bf16 at head dim 64, which every model shape must take;
-   ``tile``: queries per block x keys per tile), K1's ``small_shape`` entry
+   each K1, K3 and K4 line and entry names the body and tile it took
+   (``body``: ``wgmma`` for bf16 at head dim 64, which every model shape must
+   take; ``tile``: queries per block x keys per tile), K1's ``small_shape`` entry
    carries the profiler's device time under ``device_ms``, and K4 must
    equal K1 bit for bit on the same q, k, v at (70, 577, 3072) and at
    ragged sequence lengths; and K2's (2,
@@ -37,7 +40,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    path's bands plus halo, (1, 26, 48, 256) and (1, 50, 96, 256), under
    ``latency_shape_26x48`` and ``latency_shape_50x96``; K2 is also timed
    beside the plain composition at the 192^2 and 384^2 levels that the
-   width gate keeps on the plain path, each K2 line names the tiling the kernel took, and K2's entries carry the
+   width gate keeps on the plain path, each K2 line and entry names the body
+   and the output tile it took (``body``: ``wgmma`` at 256 channels, which
+   every model shape must take; ``tile``: rows x columns), and K2's entries carry the
    profiler's device time of K2 and of the plain composition (whose many
    launches leave the card waiting on the host) under ``device_ms`` and
    ``plain_device_ms``; times are medians over runs of back-to-back calls;
@@ -335,7 +340,7 @@ from ml_depth_pro_video_tpu_torch.ops.resblock import (
     FUSED_MAX_WIDTH,
     K2,
     fused_residual_block,
-    k2_tile,
+    k2_body,
     residual_block_reference,
 )
 from ml_depth_pro_video_tpu_torch.train import distill as distill_module
@@ -649,8 +654,8 @@ def body_fields(body: str, rows: int) -> dict:
 
 
 def attention_body_checked(b: int, s: int, heads: int, hd: int, dtype, tag: str) -> dict:
-    """``body_fields`` of a K1 / K4 call; a bf16 call at head dim 64 (every model
-    shape) must take the wgmma body."""
+    """``body_fields`` of a K1, K3 or K4 call; a bf16 call at head dim 64
+    (every model shape) must take the wgmma body."""
     fields = body_fields(*attention_body(b, s, heads, hd, dtype))
     if dtype == torch.bfloat16 and hd == 64 and fields["body"] != "wgmma":
         raise AssertionError(f"{tag}: bf16 hd=64 took the {fields['body']} body, not wgmma")
@@ -696,17 +701,33 @@ def sass_counts(sass: str, opcodes=SASS_OPCODES) -> dict:
     return counts
 
 
+# the Hopper bodies' kernels and their instance counts: K1, K3 and K4's (64 or 128 queries a
+# block, with or without a bias) and K2's (two tiles)
+WGMMA_KERNELS = {"attention_wgmma_kernel": 4, "resblock_wgmma_kernel": 2}
+
+
+def check_wgmma_sass(counts: dict) -> None:
+    """Each Hopper body's instances, all there, run on the tensor cores
+    through wgmma (HGMMA) alone (no mma.sync, HMMA) and load by TMA (UTMALDG)."""
+    for kernel, n in WGMMA_KERNELS.items():
+        found = {fn: c for fn, c in counts.items() if kernel in fn}
+        if len(found) != n or not all(c["HGMMA"] and c["UTMALDG"] and not c["HMMA"]
+                                      for c in found.values()):
+            raise AssertionError(f"{kernel}: {len(found)} instances of {n}, or SASS without "
+                                 f"HGMMA and UTMALDG or with HMMA: {found}")
+
+
 def check_sass() -> None:
-    """The built library's SASS: K1 and K4's bf16 hd=64 body must run on the
-    tensor cores through wgmma (HGMMA) and load its tiles by TMA (UTMALDG)."""
+    """The built library's SASS: the Hopper bodies of K1, K3, K4 and K2 must
+    run on wgmma and load by TMA (``check_wgmma_sass``)."""
     tool = Path(loader._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(loader.library_path())], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    wgmma = {fn: c for fn, c in sass_counts(sass).items() if "attention_wgmma_kernel" in fn}
-    for fn, c in sorted(wgmma.items()):
-        log(f"[build] cuobjdump -sass {fn}: " + ", ".join(f"{n} {op}" for op, n in c.items()))
-    if len(wgmma) != 2 or not all(c["HGMMA"] and c["UTMALDG"] for c in wgmma.values()):
-        raise AssertionError(f"the wgmma body's SASS lacks HGMMA or UTMALDG: {wgmma}")
+    counts = sass_counts(sass)
+    for fn, c in sorted(counts.items()):
+        if any(kernel in fn for kernel in WGMMA_KERNELS):
+            log(f"[build] cuobjdump -sass {fn}: " + ", ".join(f"{n} {op}" for op, n in c.items()))
+    check_wgmma_sass(counts)
 
 
 def phase_build() -> None:
@@ -779,18 +800,24 @@ def kernels_k3(g) -> dict:
             ref = attention_packed_reference(qkv, heads, bias)
             torch.cuda.synchronize()
             err, rel = rel_err(got, ref)
-            line = (f"[kernels] K3 attention_packed_bias {dtype} {shape} heads={heads}: "
+            b, s, d3 = shape
+            fields = attention_body_checked(b, s, heads, d3 // 3 // heads, dtype,
+                                            f"K3 {dtype} {shape}")
+            line = (f"[kernels] K3 attention_packed_bias {dtype} {shape} heads={heads} "
+                    f"[{fields['body']} body, {fields['tile']} tile]: "
                     f"max_abs_err={err:.3e} rel={rel:.3e} (bound {ATTN_BOUNDS[dtype]:g})")
-            if shape[-1] == 3072:
-                b, s, d3 = shape
+            if d3 == 3072:
                 times, suffix = timed(lambda: attention_packed(qkv, heads, bias),
                                       lambda: attention_packed_reference(qkv, heads, bias),
                                       sdpa_on(*_split_packed(qkv, heads), bias),
                                       attention_flops(b, heads, s, d3 // 3 // heads),
                                       nbytes(qkv, bias, got), dtype)
                 line += suffix
+                times.update(fields)
                 if shape[:2] == (35 * BATCH, 433):
                     add_to_report(report, err, rel, times, shape, dtype)
+                elif dtype == torch.bfloat16 and shape[:2] == (35 * BATCH, 289):
+                    report["fast_shape"] = report_entry(err, rel, times, shape, dtype)
                 elif dtype == torch.bfloat16 and shape[0] == 18:
                     # the latency path's patch slice at fast over 2 ranks
                     report["latency_shape"] = report_entry(err, rel, times, shape, dtype)
@@ -804,6 +831,7 @@ def kernels_k3(g) -> dict:
     base = torch.randn((b, s, 3 * heads * 64), generator=g, device="cuda")
     for dtype in (torch.bfloat16, torch.float32):
         qkv = base.to(dtype)
+        fields = attention_body_checked(b, s, heads, 64, dtype, f"K3 {dtype} -inf keys")
         got = attention_packed(qkv, heads, bias)
         ref = attention_packed_reference(qkv, heads, bias)
         torch.cuda.synchronize()
@@ -811,7 +839,8 @@ def kernels_k3(g) -> dict:
             raise AssertionError(f"K3 {dtype}: NaN or a non-zero row under an all -inf bias")
         err, rel = rel_err(got[:2], ref[:2])
         _check(f"K3 {dtype} -inf keys", rel, ATTN_BOUNDS[dtype],
-               f"[kernels] K3 {dtype} -inf bias on a whole key tile and on scattered keys: "
+               f"[kernels] K3 {dtype} [{fields['body']} body] -inf bias on a whole key tile "
+               f"and on scattered keys: "
                f"max_abs_err={err:.3e} rel={rel:.3e}; on every key of an item: finite zeros")
     return report
 
@@ -846,6 +875,15 @@ def resblock_flops(b: int, h: int, w: int, c: int) -> float:
     return 2 * 2.0 * b * h * w * 9 * c * c  # two 3x3 convolutions, C -> C
 
 
+def k2_body_checked(shape: tuple) -> dict:
+    """The body and output tile K2 takes at ``shape``; at 256 channels (every
+    model shape) it must be the wgmma body."""
+    body, (th, tw) = k2_body(*shape)
+    if shape[-1] == 256 and body != "wgmma":
+        raise AssertionError(f"K2 {shape}: 256 channels took the {body} body, not wgmma")
+    return {"body": body, "tile": f"{th}x{tw}"}
+
+
 def kernels_k2(g) -> dict:
     report = {}
     for shape in K2_SHAPES:
@@ -858,9 +896,9 @@ def kernels_k2(g) -> dict:
         ref = residual_block_reference(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
-        th, tw = k2_tile(b, h, w)
-        line = (f"[kernels] K2 resblock bf16 {shape} ({th}x{tw} tiles): max_abs_err={err:.3e} "
-                f"rel={rel:.3e} (bound {K2_BOUND:g})")
+        fields = k2_body_checked(shape)
+        line = (f"[kernels] K2 resblock bf16 {shape} [{fields['body']} body, {fields['tile']} "
+                f"tiles]: max_abs_err={err:.3e} rel={rel:.3e} (bound {K2_BOUND:g})")
         if c == 256:
             # two 3x3 convolutions; no single PyTorch call computes the whole block
             kernel = lambda: fused_residual_block(x, w1, b1, w2, b2)  # noqa: E731
@@ -869,6 +907,7 @@ def kernels_k2(g) -> dict:
                                   nbytes(x, w1, b1, w2, b2, got), torch.bfloat16)
             # the plain composition's launches wait on the host: its device time apart
             times["device_ms"], times["plain_device_ms"] = device_ms(kernel), device_ms(plain)
+            times.update(fields)
             line += (f"{suffix}; device {times['device_ms']:.3f} ms, plain "
                      f"{times['plain_device_ms']:.3f} ms")
             if w > FUSED_MAX_WIDTH:  # the width gate's evidence: K2 against the plain path

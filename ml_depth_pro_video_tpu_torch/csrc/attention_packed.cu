@@ -14,10 +14,11 @@
 //   the scaled scores (ToMe proportional attention: log token sizes);
 // - K4 `attention_bhsd_forward` <- _flash_attention (body `_flash_kernel`):
 //   the same function on separate q, k, v and out of shape (B, H, S, hd).
-// Dispatch (`launch_hd`): bf16 at hd = 64 without a bias -- K1 and K4 on
-// the model's shapes -- takes the wgmma + TMA body of
-// csrc/attention_wgmma.cu; K3, the fp32 parity mode and hd 16, 32 and 128
-// take the bodies below.
+// Dispatch (`launch_hd`): bf16 at hd = 64, with or without a bias -- K1, K3
+// and K4 on every model shape -- takes the wgmma + TMA body of
+// csrc/attention_wgmma.cu; the fp32 parity mode and bf16 at hd 16, 32 and 128
+// take the bodies below. Every entry point runs under the one device rule of
+// csrc/common.cuh (`on_device`).
 // Scores and softmax are fp32; keys >= S are masked in the kernel (no padded
 // bias row or padded copy of the inputs, unlike the TPU kernels).
 //
@@ -28,31 +29,22 @@
 // bound it -- but only while the (B*H, S, S) scores stay out of device
 // memory. The plain version writes and re-reads them in fp32.
 //
-// Design of the bodies below: one block per (query tile, head, batch item),
-// 4 warps; the block loops over 64-key tiles with an fp32 online softmax, so
-// any S works and no score leaves the SM. Ragged query and key tiles are zero-filled on load
-// and masked in the softmax. The running max is guarded so that a key tile
-// (or a whole row) whose scores are all -inf -- a -inf bias -- gives 0, not
-// exp(-inf - -inf) = NaN; a row with no finite score at all writes zeros.
-// - bf16 (K3 on the model's shapes; hd 16, 32, 128): the FlashAttention-2
-//   tiling on the tensor cores. mma.sync m16n8k16 (bf16 in, fp32 accumulate)
-//   with the scores, the probabilities and the output accumulator kept in
-//   registers (the score accumulator fragment is re-packed as the A operand
-//   of P.V); K and V tiles ride a cp.async ring in shared memory and are read
-//   with ldmatrix (V transposed on the fly). A warp that owns 16 query rows
-//   reads each K and V fragment for one mma pair, and those shared-memory
-//   reads weigh as much as the tensor-core time; so at hd = 64 a warp owns
-//   32 rows (128 queries per block) and uses each fragment twice; a grid
-//   too small to fill the card with such blocks keeps 64-query blocks
-//   (`wide_blocks`, chosen from the shape alone). S = 577 is
-//   9 * 64 + 1: warps whose rows all lie past S skip their compute, a ragged
-//   rest of at most 64 rows takes a 64-query block, and only the last key
-//   tile pays for the key mask. That last tile still computes all of its
-//   key fragments: skipping the 16-key fragments past S was tried and
-//   dropped, because it measured 5% slower on an H100 (700 W) at
-//   (70, 577, 3072), 0.4938 ms against 0.4690, and 4% slower with a bias at
-//   (70, 433, 3072), 0.3118 against 0.3001: the branches cut the unrolled
-//   tile into blocks across which ldmatrix and mma no longer overlap.
+// Design of the bodies below: one block per (64-query tile, head, batch
+// item), 4 warps; the block loops over 64-key tiles with an fp32 online
+// softmax, so any S works and no score leaves the SM. Ragged query and key
+// tiles are zero-filled on load and masked in the softmax. The running max is
+// guarded so that a key tile (or a whole row) whose scores are all -inf -- a
+// -inf bias -- gives 0, not exp(-inf - -inf) = NaN; a row with no finite
+// score at all writes zeros.
+// - bf16 at hd 16, 32 and 128, which no preset runs on the card (`tiny`'s 32
+//   is a CPU test configuration): the FlashAttention-2 tiling on the tensor
+//   cores (the sm_80 body, kept for those head dims only). mma.sync
+//   m16n8k16 (bf16 in, fp32 accumulate) with the scores, the probabilities
+//   and the output accumulator kept in registers (the score accumulator
+//   fragment is re-packed as the A operand of P.V); K and V tiles ride a
+//   cp.async ring in shared memory and are read with ldmatrix (V transposed
+//   on the fly). Warps whose 16 rows all lie past S skip their compute, and
+//   only the last key tile pays for the key mask.
 // - fp32 (parity mode): plain fp32 FMAs (no TF32, no tensor cores), register
 //   tiled as an SGEMM is: see the fp32 section.
 
@@ -63,6 +55,7 @@
 #include <stdint.h>
 
 #include "attention.cuh"
+#include "common.cuh"
 
 namespace {
 
@@ -71,7 +64,7 @@ using depth_pro_attention::wide_blocks;
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 64;    // queries per block (fp32; the bf16 body's blocks hold 64 or 128)
+constexpr int BQ = 64;    // queries per block
 constexpr int BK = 64;    // keys per tile (bf16)
 constexpr int BK32 = 64;  // keys per tile (fp32)
 constexpr int NWARPS = 4;
@@ -185,13 +178,11 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// MT: 16-row m-tiles per warp, so a block holds 64 * MT queries
-template <int HD, bool BIAS, int MT>
+template <int HD, bool BIAS>
 struct Bf16Geometry {
-  static constexpr int ROWS = 64 * MT;
   static constexpr int LD = HD + 8;  // padded rows: conflict-free ldmatrix
   static constexpr size_t kTiles =
-      sizeof(bf16) * (size_t)(ROWS + 4 * BK) * LD;  // Q, two stages of (K, V)
+      sizeof(bf16) * (size_t)(BQ + 4 * BK) * LD;  // Q, two stages of (K, V)
   static constexpr size_t kBytes = kTiles + (BIAS ? sizeof(float) * 2 * BK : 0);
 };
 
@@ -204,15 +195,15 @@ __device__ __forceinline__ void load_bias_async(float* dst, const float* __restr
   }
 }
 
-// One 64-key tile for one warp: S = Q K^T, the online softmax, O += P V.
-// TAIL: the tile holds only `kv` < 64 valid keys, so the mask applies; V rows
-// past S are zero in shared memory, so their zero probabilities add zeros.
-template <int HD, bool BIAS, int MT, bool TAIL>
+// One 64-key tile for one warp's 16 query rows: S = Q K^T, the online
+// softmax, O += P V. TAIL: the tile holds only `kv` < 64 valid keys, so the
+// mask applies; V rows past S are zero in shared memory, so their zero
+// probabilities add zeros.
+template <int HD, bool BIAS, bool TAIL>
 __device__ __forceinline__ void attend_tile(const bf16* Kt, const bf16* Vt, const float* Bt,
                                             int kv, float scale, int lane,
-                                            const uint32_t (&qa)[MT][HD / 16][4],
-                                            float (&o)[MT][HD / 8][4], float (&m)[MT][2],
-                                            float (&l)[MT][2]) {
+                                            const uint32_t (&qa)[HD / 16][4],
+                                            float (&o)[HD / 8][4], float (&m)[2], float (&l)[2]) {
   constexpr int LD = HD + 8;
   const int tig = lane & 3;  // fragment column pair
   // The softmax runs in base 2: exp(x - max) = 2^(x * c2 - max * c2), one FMA
@@ -220,13 +211,10 @@ __device__ __forceinline__ void attend_tile(const bf16* Kt, const bf16* Vt, cons
   // with one, x = scale * score + bias comes first and c2 is log2(e).
   const float c2 = BIAS ? LOG2E : scale * LOG2E;
 
-  // raw scores of this warp's 16 * MT rows x 64 keys (8 n-tiles of 8 keys);
-  // each K fragment read serves every m-tile
-  float s[MT][BK / 8][4];
+  // raw scores of this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
+  float s[BK / 8][4];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+  for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
 #pragma unroll
@@ -234,73 +222,62 @@ __device__ __forceinline__ void attend_tile(const bf16* Kt, const bf16* Vt, cons
       uint32_t kfrag[4];
       ldmatrix_x4(kfrag, Kt + (16 * jn + (lane & 7) + (lane >> 4) * 8) * LD + 16 * kk +
                              ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(s[mt][2 * jn], qa[mt][kk], kfrag[0], kfrag[1]);
-        mma_bf16(s[mt][2 * jn + 1], qa[mt][kk], kfrag[2], kfrag[3]);
-      }
+      mma_bf16(s[2 * jn], qa[kk], kfrag[0], kfrag[1]);
+      mma_bf16(s[2 * jn + 1], qa[kk], kfrag[2], kfrag[3]);
     }
   }
 
-  // online softmax in base 2, one m-tile after the other; P in bf16,
-  // re-packed from the score fragments into A fragments of P.V
-  uint32_t pa[MT][BK / 16][4];
+  // online softmax in base 2; P in bf16, re-packed from the score fragments
+  // into A fragments of P.V
+  float mx_lo = -INFINITY, mx_hi = -INFINITY;  // rows g and g + 8
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    float mx_lo = -INFINITY, mx_hi = -INFINITY;  // rows g and g + 8
+  for (int j = 0; j < BK / 8; ++j) {
+    float2 kb;  // the biases of this thread's two keys of the fragment
+    if (BIAS) kb = *reinterpret_cast<const float2*>(Bt + 8 * j + 2 * tig);
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      float2 kb;  // the biases of this thread's two keys of the fragment
-      if (BIAS) kb = *reinterpret_cast<const float2*>(Bt + 8 * j + 2 * tig);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (BIAS) {
-          const float b = e ? kb.y : kb.x;
-          s[mt][j][e] = fmaf(s[mt][j][e], scale, b);
-          s[mt][j][2 + e] = fmaf(s[mt][j][2 + e], scale, b);
-        }
-        if (TAIL && 8 * j + 2 * tig + e >= kv) s[mt][j][e] = s[mt][j][2 + e] = -INFINITY;
-        mx_lo = fmaxf(mx_lo, s[mt][j][e]);
-        mx_hi = fmaxf(mx_hi, s[mt][j][2 + e]);
+    for (int e = 0; e < 2; ++e) {
+      if (BIAS) {
+        const float b = e ? kb.y : kb.x;
+        s[j][e] = fmaf(s[j][e], scale, b);
+        s[j][2 + e] = fmaf(s[j][2 + e], scale, b);
       }
-    }
-    // the running max in base-2 units (c2 > 0, so the max commutes with it)
-    const float m_lo = fmaxf(m[mt][0], quad_max(mx_lo) * c2);
-    const float m_hi = fmaxf(m[mt][1], quad_max(mx_hi) * c2);
-    const float sub_lo = finite_or_zero(m_lo), sub_hi = finite_or_zero(m_hi);
-    const float alpha_lo = fast_exp2(m[mt][0] - sub_lo);  // 0 while nothing was finite before
-    const float alpha_hi = fast_exp2(m[mt][1] - sub_hi);
-    m[mt][0] = m_lo;
-    m[mt][1] = m_hi;
-
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      float p[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float sub = e < 2 ? sub_lo : sub_hi;
-        p[e] = fast_exp2(fmaf(s[mt][j][e], c2, -sub));
-      }
-      const uint32_t lo = pack_bf16(p[0], p[1]);
-      const uint32_t hi = pack_bf16(p[2], p[3]);
-      sum_lo += p[0] + p[1];  // the fp32 values, not the rounded ones
-      sum_hi += p[2] + p[3];
-      pa[mt][j >> 1][(j & 1) * 2] = lo;
-      pa[mt][j >> 1][(j & 1) * 2 + 1] = hi;
-    }
-    l[mt][0] = l[mt][0] * alpha_lo + sum_lo;
-    l[mt][1] = l[mt][1] * alpha_hi + sum_hi;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      o[mt][n][0] *= alpha_lo;
-      o[mt][n][1] *= alpha_lo;
-      o[mt][n][2] *= alpha_hi;
-      o[mt][n][3] *= alpha_hi;
+      if (TAIL && 8 * j + 2 * tig + e >= kv) s[j][e] = s[j][2 + e] = -INFINITY;
+      mx_lo = fmaxf(mx_lo, s[j][e]);
+      mx_hi = fmaxf(mx_hi, s[j][2 + e]);
     }
   }
+  // the running max in base-2 units (c2 > 0, so the max commutes with it)
+  const float m_lo = fmaxf(m[0], quad_max(mx_lo) * c2);
+  const float m_hi = fmaxf(m[1], quad_max(mx_hi) * c2);
+  const float sub_lo = finite_or_zero(m_lo), sub_hi = finite_or_zero(m_hi);
+  const float alpha_lo = fast_exp2(m[0] - sub_lo);  // 0 while nothing was finite before
+  const float alpha_hi = fast_exp2(m[1] - sub_hi);
+  m[0] = m_lo;
+  m[1] = m_hi;
 
-  // O += P V (V read transposed by ldmatrix); each V fragment read serves every m-tile
+  uint32_t pa[BK / 16][4];
+  float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[e] = fast_exp2(fmaf(s[j][e], c2, -(e < 2 ? sub_lo : sub_hi)));
+    sum_lo += p[0] + p[1];  // the fp32 values, not the rounded ones
+    sum_hi += p[2] + p[3];
+    pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+  }
+  l[0] = l[0] * alpha_lo + sum_lo;
+  l[1] = l[1] * alpha_hi + sum_hi;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    o[n][0] *= alpha_lo;
+    o[n][1] *= alpha_lo;
+    o[n][2] *= alpha_hi;
+    o[n][3] *= alpha_hi;
+  }
+
+  // O += P V (V read transposed by ldmatrix)
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
@@ -308,32 +285,30 @@ __device__ __forceinline__ void attend_tile(const bf16* Kt, const bf16* Vt, cons
       uint32_t vfrag[4];
       ldmatrix_x4_trans(vfrag, Vt + (16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
                                    16 * nn + (lane >> 4) * 8);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma_bf16(o[mt][2 * nn], pa[mt][kk], vfrag[0], vfrag[1]);
-        mma_bf16(o[mt][2 * nn + 1], pa[mt][kk], vfrag[2], vfrag[3]);
-      }
+      mma_bf16(o[2 * nn], pa[kk], vfrag[0], vfrag[1]);
+      mma_bf16(o[2 * nn + 1], pa[kk], vfrag[2], vfrag[3]);
     }
   }
 }
 
-// One block: queries [q0, q0 + 64 * MT) of head blockIdx.y of item blockIdx.z.
-template <int HD, bool BIAS, int MT>
-__device__ __forceinline__ void attention_bf16_block(const Args<bf16>& a, int q0,
-                                                     unsigned char* smem) {
-  using G = Bf16Geometry<HD, BIAS, MT>;
+// One block: queries [64 * blockIdx.x, + 64) of head blockIdx.y of item blockIdx.z.
+template <int HD, bool BIAS>
+__global__ void __launch_bounds__(NTHREADS, 1) attention_bf16_kernel(const Args<bf16> a) {
+  using G = Bf16Geometry<HD, BIAS>;
   constexpr int LD = G::LD;
+  extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + G::ROWS * LD;  // [2][BK][LD]
-  bf16* Vs = Ks + 2 * BK * LD;   // [2][BK][LD]
+  bf16* Ks = Qs + BQ * LD;      // [2][BK][LD]
+  bf16* Vs = Ks + 2 * BK * LD;  // [2][BK][LD]
   float* Bs = reinterpret_cast<float*>(smem + G::kTiles);  // [2][BK], with a bias only
 
   const int S = a.S;
+  const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int wrow0 = q0 + warp * 16 * MT;  // this warp's first query row
+  const int wrow0 = q0 + warp * 16;  // this warp's first query row
   const long long in_off = b * a.in_b + h * a.in_h;
   const bf16* qb = a.q + in_off;
   const bf16* kb_ = a.k + in_off;
@@ -343,22 +318,18 @@ __device__ __forceinline__ void attention_bf16_block(const Args<bf16>& a, int q0
   // a warp whose rows all lie past S takes part in the loads and barriers only
   const bool active = wrow0 < S;
 
-  load_tile_async<bf16, HD, G::ROWS>(Qs, qb, q0, S, a.in_r);
+  load_tile_async<bf16, HD, BQ>(Qs, qb, q0, S, a.in_r);
   load_tile_async<bf16, HD, BK>(Ks, kb_, 0, S, a.in_r);
   load_tile_async<bf16, HD, BK>(Vs, vb_, 0, S, a.in_r);
   if (BIAS) load_bias_async(Bs, brow, 0, S);
   cp_async_commit();
 
-  uint32_t qa[MT][HD / 16][4];
-  float o[MT][HD / 8][4];
-  float m[MT][2], l[MT][2];  // running max of rows g and g + 8; this thread's share of the sums
+  uint32_t qa[HD / 16][4];
+  float o[HD / 8][4];
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
+  float l[2] = {0.f, 0.f};              // this thread's share of their sums
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    m[mt][0] = m[mt][1] = -INFINITY;
-    l[mt][0] = l[mt][1] = 0.f;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
-  }
+  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<0>();  // tile t has landed
@@ -374,11 +345,8 @@ __device__ __forceinline__ void attention_bf16_block(const Args<bf16>& a, int q0
     if (active) {
       if (t == 0) {
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int kk = 0; kk < HD / 16; ++kk)
-            ldmatrix_x4(qa[mt][kk], Qs + ((warp * MT + mt) * 16 + (lane & 15)) * LD + 16 * kk +
-                                        (lane >> 4) * 8);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          ldmatrix_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + 16 * kk + (lane >> 4) * 8);
       }
       const int stage = t & 1;
       const bf16* Kt = Ks + stage * BK * LD;
@@ -386,9 +354,9 @@ __device__ __forceinline__ void attention_bf16_block(const Args<bf16>& a, int q0
       const float* Bt = Bs + stage * BK;
       const int kv = S - t * BK;  // valid keys from this tile on
       if (kv >= BK)
-        attend_tile<HD, BIAS, MT, false>(Kt, Vt, Bt, BK, a.scale, lane, qa, o, m, l);
+        attend_tile<HD, BIAS, false>(Kt, Vt, Bt, BK, a.scale, lane, qa, o, m, l);
       else
-        attend_tile<HD, BIAS, MT, true>(Kt, Vt, Bt, kv, a.scale, lane, qa, o, m, l);
+        attend_tile<HD, BIAS, true>(Kt, Vt, Bt, kv, a.scale, lane, qa, o, m, l);
     }
   }
   if (!active) return;
@@ -396,42 +364,21 @@ __device__ __forceinline__ void attention_bf16_block(const Args<bf16>& a, int q0
   const int g = lane >> 2;   // fragment row (and row + 8)
   const int tig = lane & 3;  // fragment column pair
   bf16* dst = a.o + b * a.out_b + h * a.out_h + 2 * tig;
+  // full row sums across the quad that shares each row
+  const float l_lo = quad_sum(l[0]), l_hi = quad_sum(l[1]);
+  const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;  // no finite score: zeros
+  const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
+  const int row_lo = wrow0 + g;
+  const int row_hi = row_lo + 8;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    // full row sums across the quad that shares each row
-    const float l_lo = quad_sum(l[mt][0]), l_hi = quad_sum(l[mt][1]);
-    const float inv_lo = l_lo > 0.f ? 1.f / l_lo : 0.f;  // no finite score: zeros
-    const float inv_hi = l_hi > 0.f ? 1.f / l_hi : 0.f;
-    const int row_lo = wrow0 + 16 * mt + g;
-    const int row_hi = row_lo + 8;
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      if (row_lo < S)
-        *reinterpret_cast<uint32_t*>(dst + row_lo * a.out_r + 8 * n) =
-            pack_bf16(o[mt][n][0] * inv_lo, o[mt][n][1] * inv_lo);
-      if (row_hi < S)
-        *reinterpret_cast<uint32_t*>(dst + row_hi * a.out_r + 8 * n) =
-            pack_bf16(o[mt][n][2] * inv_hi, o[mt][n][3] * inv_hi);
-    }
+  for (int n = 0; n < HD / 8; ++n) {
+    if (row_lo < S)
+      *reinterpret_cast<uint32_t*>(dst + row_lo * a.out_r + 8 * n) =
+          pack_bf16(o[n][0] * inv_lo, o[n][1] * inv_lo);
+    if (row_hi < S)
+      *reinterpret_cast<uint32_t*>(dst + row_hi * a.out_r + 8 * n) =
+          pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
   }
-}
-
-// Whether the last block of a grid of 128-query blocks is a 64-query one: a
-// ragged rest of at most 64 rows (433 = 3 * 128 + 49, 289 = 2 * 128 + 33)
-// then costs half a block's time; a longer rest (577 = 4 * 128 + 65) stays
-// one 128-query block.
-__host__ __device__ constexpr bool narrow_last_block(int S) {
-  return S % 128 > 0 && S % 128 <= 64;
-}
-
-template <int HD, bool BIAS, int MT>
-__global__ void __launch_bounds__(NTHREADS, MT == 2 ? 2 : 1)
-    attention_bf16_kernel(const Args<bf16> a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  if (MT == 2 && narrow_last_block(a.S) && blockIdx.x == gridDim.x - 1)
-    attention_bf16_block<HD, BIAS, 1>(a, blockIdx.x * 128, smem);
-  else
-    attention_bf16_block<HD, BIAS, MT>(a, blockIdx.x * 64 * MT, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -656,14 +603,14 @@ cudaError_t launch(Kernel kernel, size_t smem, int rows, const Layout& L, int B,
   return cudaGetLastError();
 }
 
-// The body a call takes, from its shape, dtype and bias alone (never from its
-// layout, so K1 and K4 take the same one on the same data): 0 the fp32 body,
-// 1 the mma.sync body, 2 the wgmma body; *rows, its queries per block.
-int body_of(int B, int S, int H, int hd, bool is_bf16, bool bias, int sm_count, int* rows) {
-  const bool wide = hd == 64 && wide_blocks(B, S, H, sm_count);
-  *rows = is_bf16 && wide ? 128 : 64;
-  if (!is_bf16) return 0;
-  return hd == 64 && !bias ? 2 : 1;
+// The body a call takes, from its shape and dtype alone (never from its
+// layout or bias, so K1 and K4 take the same one on the same data): 0 the
+// fp32 body, 1 the mma.sync body, 2 the wgmma body; *rows, its queries per
+// block.
+int body_of(int B, int S, int H, int hd, bool is_bf16, int sm_count, int* rows) {
+  const bool wgmma = is_bf16 && hd == 64;
+  *rows = wgmma && wide_blocks(B, S, H, sm_count) ? 128 : 64;
+  return !is_bf16 ? 0 : wgmma ? 2 : 1;
 }
 
 template <int HD, bool BIAS>
@@ -672,37 +619,30 @@ int launch_hd(bool is_bf16, bool packed, const Layout& L, int B, int S, int H, f
   if (!is_bf16)
     return launch<float>(attention_fp32_kernel<HD, BIAS>, Fp32Geometry<HD>::kBytes, BQ, L, B, S,
                          H, scale, stream);
-  if constexpr (HD == 64 && !BIAS) {
+  if constexpr (HD == 64) {
     return depth_pro_attention::launch_wgmma(L, packed, B, S, H, scale,
                                              wide_blocks(B, S, H, sm_count), stream);
   } else {
-    if constexpr (HD == 64) {
-      if (wide_blocks(B, S, H, sm_count))
-        return launch<bf16>(attention_bf16_kernel<HD, BIAS, 2>,
-                            Bf16Geometry<HD, BIAS, 2>::kBytes, 128, L, B, S, H, scale, stream);
-    }
-    return launch<bf16>(attention_bf16_kernel<HD, BIAS, 1>, Bf16Geometry<HD, BIAS, 1>::kBytes,
-                        64, L, B, S, H, scale, stream);
+    return launch<bf16>(attention_bf16_kernel<HD, BIAS>, Bf16Geometry<HD, BIAS>::kBytes, BQ, L, B,
+                        S, H, scale, stream);
   }
 }
 
 template <bool BIAS>
 int dispatch(const Layout& L, bool packed, int B, int S, int H, int hd, int is_bf16, float scale,
              int device, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  int sms = 0;  // asked per launch: the runtime answers from its cache, and no state is kept here
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return e;
+  if (B <= 0 || S <= 0 || H <= 0 || B > 65535 || H > 65535 || device < 0)
+    return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_hd<16, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
-    case 32: return launch_hd<32, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
-    case 64: return launch_hd<64, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
-    case 128: return launch_hd<128, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return depth_pro_kernels::on_device(device, [&](int sms) -> int {
+    switch (hd) {
+      case 16: return launch_hd<16, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
+      case 32: return launch_hd<32, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
+      case 64: return launch_hd<64, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
+      case 128: return launch_hd<128, BIAS>(is_bf16, packed, L, B, S, H, scale, sms, st);
+      default: return cudaErrorInvalidValue;
+    }
+  });
 }
 
 // packed head-contiguous qkv (B, S, 3*H*hd) -> out (B, S, H*hd)
@@ -726,7 +666,8 @@ extern "C" int attention_packed_forward(const void* qkv, void* out, int B, int S
                          hd, is_bf16, scale, device, stream);
 }
 
-// K3. As K1, plus bias: (B, S) fp32 contiguous, added to the scaled scores per key.
+// K3. As K1, plus bias: (B, S) fp32 contiguous, 16-byte aligned, added to the
+// scaled scores per key.
 extern "C" int attention_packed_bias_forward(const void* qkv, const void* bias, void* out,
                                              int B, int S, int H, int hd, int is_bf16,
                                              float scale, int device, void* stream) {
@@ -746,10 +687,10 @@ extern "C" int attention_bhsd_forward(const void* q, const void* k, const void* 
 
 // The body a call of this shape takes on `device` (*body: 0 fp32, 1 mma.sync,
 // 2 wgmma) and its queries per block (*rows). Returns a cudaError_t code.
-extern "C" int attention_kernel_body(int B, int S, int H, int hd, int is_bf16, int bias,
-                                     int device, int* body, int* rows) {
+extern "C" int attention_kernel_body(int B, int S, int H, int hd, int is_bf16, int device,
+                                     int* body, int* rows) {
   int sms = 0;
   const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  *body = body_of(B, S, H, hd, is_bf16 != 0, bias != 0, sms, rows);
+  *body = body_of(B, S, H, hd, is_bf16 != 0, sms, rows);
   return (int)e;
 }

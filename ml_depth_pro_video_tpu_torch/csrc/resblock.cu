@@ -1,7 +1,15 @@
 // Fused DPT residual block: out = x + conv3x3(relu(conv3x3(relu(x)) + b1)) + b2.
+// The entry point K2 (`resblock_forward`), its dispatch, and the mma.sync
+// body for widths other than 256.
 //
 // Replaces: ml_depth_pro_video_tpu/ops/resblock.py::_resblock_pallas
-// (Pallas body `_resblock_kernel`). Both convs are 3x3, stride 1, pad 1,
+// (Pallas body `_resblock_kernel`). Dispatch, of the shape alone: C = 256
+// (the large preset's decoder, every model path's K2) takes the wgmma + TMA
+// body of csrc/resblock_wgmma.cu; every other width (a multiple of 8 up to
+// 256: 96 and 192 in `small` and `base`, 24-128 in the card tests) takes the
+// body below. Either body's failed launch is returned as an error, never
+// retried on the other. The entry point runs under the one device rule of
+// csrc/common.cuh (`on_device`). Both convs are 3x3, stride 1, pad 1,
 // NHWC activations, weights (9, C, C) = HWIO with the taps flattened. The
 // intermediate h is zero outside the image (torch's pad semantics for the
 // second conv) and is rounded to bf16, as the TPU kernel rounds it; the
@@ -18,7 +26,7 @@
 // sets (2.36 MB at C = 256) from L2, so bigger tiles read fewer bytes per
 // output pixel.
 //
-// Design (mma.sync, ldmatrix and cp.async; no TMA, no wgmma):
+// Design of the body below (mma.sync, ldmatrix and cp.async; no TMA, no wgmma):
 // - One block of 8 warps per (batch item, TH x TW output tile). cp.async
 //   stages x over the tile plus a 2-pixel halo in shared memory (zero
 //   outside the image and past C), ReLU'd in place; conv1 computes h over
@@ -42,17 +50,19 @@
 // - The epilogues work on the accumulator fragments in registers: conv1
 //   adds b1, applies ReLU, zeroes positions outside the image and rounds h
 //   to bf16 into shared memory; conv2 adds b2 and x and stores bf16 pairs.
-// - Tiling: 10x8 tiles where they give every SM a block, else 6x6 tiles
-//   (48^2 at batch 2: 60 10x8 tiles, 128 6x6 tiles for 132 SMs). On an
-//   H100 (700 W) a 10x8 tile with 64-row chunks beat 12x8 with 32-row ones
-//   (the most a 12x8 tile leaves room for) and 8x8 at (2, 96, 96, 256);
-//   PERF.md keeps the table.
+// - Tiling: 10x8 tiles where they give every SM a block, else 6x6 tiles.
+//   On an H100 (700 W) a 10x8 tile with 64-row chunks beat 12x8 with 32-row
+//   ones (the most a 12x8 tile leaves room for) and 8x8 at (2, 96, 96, 256),
+//   measured when this body still took C = 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <stdint.h>
+
+#include "common.cuh"
+#include "resblock.cuh"
 
 namespace {
 
@@ -92,27 +102,17 @@ struct Geometry {
   }
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  // src-size 0 zero-fills the 16 bytes (outside the image, past C)
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
+using depth_pro_kernels::cp_async16;  // zero-fills outside the image and past C
+using depth_pro_kernels::ldmatrix_x4;
+using depth_pro_kernels::pack_bf16;
+using depth_pro_kernels::smem_u32;
+using depth_pro_resblock::bias_pair;
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
@@ -130,18 +130,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// a bias pair rounded to bf16 (as the TPU kernel reads it), then fp32
-__device__ __forceinline__ float2 bias_pair(const float* __restrict__ b, int n) {
-  const float2 v = *reinterpret_cast<const float2*>(b + n);
-  return make_float2(__bfloat162float(__float2bfloat16(v.x)),
-                     __bfloat162float(__float2bfloat16(v.y)));
 }
 
 // One warp's weight stream: conv1's 9 * cn / KC chunks, then conv2's, issued
@@ -263,7 +251,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int lane = threadIdx.x % 32;
   const int n0 = warp * WARP_N;     // this warp's output channels
   const bool active = n0 < geo.cn;  // narrow C leaves warps without channels
-  WarpWeights wt(w1, w2, C, geo.cn, n0, smem_addr(smem + geo.w_off + warp * STAGES * CHUNK));
+  WarpWeights wt(w1, w2, C, geo.cn, n0, smem_u32(smem + geo.w_off + warp * STAGES * CHUNK));
 
   // x over image rows [y0-2, y0+TH+2) x cols [x0-2, x0+TW+2) and each warp's
   // first weight chunks, then relu(x) in place on this thread's own pieces
@@ -274,7 +262,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     const int gy = y0 - 2 + p / G::XW;
     const int gx = x0 - 2 + p % G::XW;
     const bool valid = gy >= 0 && gy < H && gx >= 0 && gx < W && n < C;
-    cp_async16(smem_addr(xs + p * ld + n), valid ? x + ((img + gy) * W + gx) * C + n : x, valid);
+    cp_async16(smem_u32(xs + p * ld + n), valid ? x + ((img + gy) * W + gx) * C + n : x, valid);
   }
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -305,7 +293,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     for (int mt = 0; mt < G::MT1; ++mt) {
       int p = mt * 16 + (lane & 15);
       if (p >= G::HPX) p = 0;  // round-up rows: read any pixel, never stored
-      a_row[mt] = smem_addr(xs + ((p / G::HW) * G::XW + p % G::HW) * ld + (lane >> 4) * 8);
+      a_row[mt] = smem_u32(xs + ((p / G::HW) * G::XW + p % G::HW) * ld + (lane >> 4) * 8);
     }
     conv_gemm<G::MT1, G::XW>(acc, a_row, wt, ld, q);
     float2 bias[NT];
@@ -344,7 +332,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     for (int mt = 0; mt < G::MT2; ++mt) {
       int o = mt * 16 + (lane & 15);
       if (o >= G::OPX) o = 0;
-      a_row[mt] = smem_addr(hs + ((o / TW) * G::HW + o % TW) * ld + (lane >> 4) * 8);
+      a_row[mt] = smem_u32(hs + ((o / TW) * G::HW + o % TW) * ld + (lane >> 4) * 8);
     }
     conv_gemm<G::MT2, G::HW>(acc, a_row, wt, ld, q);
     float2 bias[NT];
@@ -428,35 +416,41 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
 
 // x, out: (B, H, W, C) bf16 contiguous, 16-byte aligned, C % 8 == 0 and
 // C <= 256. w1, w2: (9, C, C) bf16 contiguous, 16-byte aligned; b1, b2: (C,)
-// fp32, 8-byte aligned. Runs on `device`, on `stream`. Returns a cudaError_t code.
+// fp32, 8-byte aligned. Runs on `device`, on `stream`. Returns a cudaError_t
+// code, or depth_pro_kernels::kTensorMapError + the CUresult of a refused
+// tensor map.
 extern "C" int resblock_forward(const void* x, const void* w1, const void* b1, const void* w2,
                                 const void* b2, void* out, int B, int H, int W, int C,
                                 int device, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || B > 65535 || C <= 0 || C % 8 || C > MAX_C || device < 0)
     return cudaErrorInvalidValue;
-  int current = 0;
-  cudaError_t e = cudaGetDevice(&current);
-  if (e == cudaSuccess && current != device) e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  int sms = 0;  // asked per launch: the runtime answers from its cache
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess) {
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    e = wide_tiles(B, H, W, sms)
-            ? launch<Wide>(x, w1, b1, w2, b2, out, B, H, W, C, device, st)
-            : launch<Narrow>(x, w1, b1, w2, b2, out, B, H, W, C, device, st);
-  }
-  if (current != device) cudaSetDevice(current);  // the caller's device, as it was
-  return (int)e;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return depth_pro_kernels::on_device(device, [&](int sms) -> int {
+    if (C == depth_pro_resblock::kWgmmaChannels)
+      return depth_pro_resblock::launch_wgmma(x, w1, static_cast<const float*>(b1), w2,
+                                              static_cast<const float*>(b2), out, B, H, W, sms,
+                                              st);
+    return (int)(wide_tiles(B, H, W, sms)
+                     ? launch<Wide>(x, w1, b1, w2, b2, out, B, H, W, C, device, st)
+                     : launch<Narrow>(x, w1, b1, w2, b2, out, B, H, W, C, device, st));
+  });
 }
 
-// The output tile (*th rows x *tw columns) a launch of this shape takes on
-// `device`. Returns a cudaError_t code.
-extern "C" int resblock_tile(int B, int H, int W, int device, int* th, int* tw) {
+// The body a launch of this shape takes on `device` (*body: 0 the mma.sync
+// body, 1 the wgmma body) and its output tile (*th rows x *tw columns).
+// Returns a cudaError_t code.
+extern "C" int resblock_kernel_body(int B, int H, int W, int C, int device, int* body, int* th,
+                                    int* tw) {
   int sms = 0;
   const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const bool wide = wide_tiles(B, H, W, sms);
-  *th = wide ? Wide::TH : Narrow::TH;
-  *tw = wide ? Wide::TW : Narrow::TW;
+  if (C == depth_pro_resblock::kWgmmaChannels) {
+    *body = 1;
+    depth_pro_resblock::wgmma_tile(B, H, W, sms, th, tw);
+  } else {
+    const bool wide = wide_tiles(B, H, W, sms);
+    *body = 0;
+    *th = wide ? Wide::TH : Narrow::TH;
+    *tw = wide ? Wide::TW : Narrow::TW;
+  }
   return (int)e;
 }

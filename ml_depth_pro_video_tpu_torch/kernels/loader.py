@@ -61,9 +61,10 @@ _SIGNATURES = {
     "attention_packed_bias_forward": ((_p, _p, _p) + _ATTN_ARGS, _i),
     "attention_bhsd_forward": ((_p, _p, _p, _p) + _ATTN_ARGS, _i),
     "resblock_forward": ((_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _p), _i),  # B, H, W, C, device
-    "resblock_tile": ((_i, _i, _i, _i, _pi, _pi), _i),  # B, H, W, device -> rows, columns
-    # B, S, H, hd, is_bf16, bias, device -> body, queries per block
-    "attention_kernel_body": ((_i, _i, _i, _i, _i, _i, _i, _pi, _pi), _i),
+    # B, H, W, C, device -> body, rows, columns
+    "resblock_kernel_body": ((_i, _i, _i, _i, _i, _pi, _pi, _pi), _i),
+    # B, S, H, hd, is_bf16, device -> body, queries per block
+    "attention_kernel_body": ((_i, _i, _i, _i, _i, _i, _pi, _pi), _i),
 }
 
 # names of the cudaError_t codes a launch can plausibly return
@@ -72,7 +73,7 @@ _CUDA_ERRORS = {1: "cudaErrorInvalidValue", 2: "cudaErrorMemoryAllocation",
                 100: "cudaErrorNoDevice", 101: "cudaErrorInvalidDevice",
                 209: "cudaErrorNoKernelImageForDevice", 700: "cudaErrorIllegalAddress",
                 701: "cudaErrorLaunchOutOfResources", 801: "cudaErrorNotSupported"}
-# csrc/attention.cuh::kTensorMapError: cuTensorMapEncodeTiled refused a tensor map
+# csrc/common.cuh::kTensorMapError: cuTensorMapEncodeTiled refused a tensor map
 # and returned (code - TENSOR_MAP_ERROR) as its CUresult
 TENSOR_MAP_ERROR = 10000
 

@@ -14,8 +14,8 @@ replace the Pallas kernels:
   bias (B, S) (ToMe proportional attention: log token sizes);
 - K4 ``_flash_attention``: separate q, k, v of shape (B, H, S, D).
 
-In bf16 at head dim 64, K1 and K4 run the wgmma + TMA body of
-``csrc/attention_wgmma.cu``; K3, fp32 and the other head dims the bodies of
+In bf16 at head dim 64, K1, K3 and K4 run the wgmma + TMA body of
+``csrc/attention_wgmma.cu``; fp32 and the other head dims the bodies of
 ``csrc/attention_packed.cu`` (``attention_body`` says which a shape takes).
 
 Each kernel is a ``torch.library`` custom operator, so that a traced graph
@@ -40,12 +40,11 @@ import torch
 
 from ..kernels.loader import Kernel, KernelLaunchError, load_library
 
-_SOURCE = "ml_depth_pro_video_tpu_torch/csrc/attention_packed.cu"
-_WGMMA_SOURCE = "ml_depth_pro_video_tpu_torch/csrc/attention_wgmma.cu"  # K1, K4 in bf16 at hd 64
+_WGMMA_SOURCE = "ml_depth_pro_video_tpu_torch/csrc/attention_wgmma.cu"  # bf16 at hd 64
 K1 = Kernel(name="attention_packed", symbol="attention_packed_forward", source=_WGMMA_SOURCE,
             replaces="ml_depth_pro_video_tpu/ops/attention.py:211")
 K3 = Kernel(name="attention_packed_bias", symbol="attention_packed_bias_forward",
-            source=_SOURCE, replaces="ml_depth_pro_video_tpu/ops/attention.py:167")
+            source=_WGMMA_SOURCE, replaces="ml_depth_pro_video_tpu/ops/attention.py:167")
 K4 = Kernel(name="attention_bhsd", symbol="attention_bhsd_forward", source=_WGMMA_SOURCE,
             replaces="ml_depth_pro_video_tpu/ops/attention.py:74")
 
@@ -62,13 +61,13 @@ def kernel_takes(hd: int, dtype: torch.dtype) -> bool:
 
 
 def attention_body(batch: int, s: int, heads: int, hd: int, dtype: torch.dtype,
-                   bias: bool = False, device: int = 0) -> tuple[str, int]:
-    """The body a K1 / K3 (``bias``) / K4 call of this shape takes on CUDA
-    device ``device`` (``"wgmma"``, ``"mma.sync"`` or ``"fp32"``) and its
-    queries per block: a function of the shape alone, the same for K1 and K4."""
+                   device: int = 0) -> tuple[str, int]:
+    """The body a K1, K3 or K4 call of this shape takes on CUDA device
+    ``device`` (``"wgmma"``, ``"mma.sync"`` or ``"fp32"``) and its queries per
+    block: a function of the shape alone, the same with or without a bias."""
     body, rows = ctypes.c_int(), ctypes.c_int()
     err = load_library().attention_kernel_body(batch, s, heads, hd,
-                                               int(dtype == torch.bfloat16), int(bias), device,
+                                               int(dtype == torch.bfloat16), device,
                                                ctypes.byref(body), ctypes.byref(rows))
     if err:
         raise KernelLaunchError(f"attention_kernel_body returned cudaError {err}")
@@ -141,6 +140,8 @@ def _attention_packed_cuda(qkv: torch.Tensor, num_heads: int,
             raise ValueError(f"key_bias must be ({b}, {s}) on {qkv.device}, got "
                              f"{tuple(key_bias.shape)} on {key_bias.device}")
         key_bias = key_bias.float().contiguous()
+        if key_bias.data_ptr() % 16:  # the wgmma body loads it by TMA: a fresh, aligned copy
+            key_bias = key_bias.clone()
     qkv = qkv.contiguous()
     _check_kernel_input("attention_packed", qkv, hd)
     if b == 0 or s == 0:

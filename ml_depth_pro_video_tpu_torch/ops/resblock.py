@@ -4,8 +4,11 @@ Twin of ``ml_depth_pro_video_tpu/ops/resblock.py::residual_block``. Both
 convs are 3x3, pad 1; x is NHWC, weights HWIO (3, 3, C, C), biases (C,).
 
 ``residual_block_reference`` is the plain PyTorch composition. The port's
-kernel K2 (``csrc/resblock.cu``) replaces the Pallas kernel
-``_resblock_pallas``. It is the custom operator ``depth_pro::resblock``
+kernel K2 replaces the Pallas kernel ``_resblock_pallas``: at 256 channels
+(the large preset's decoder) the wgmma + TMA body of
+``csrc/resblock_wgmma.cu``, at other widths the mma.sync body of
+``csrc/resblock.cu``, whose entry point dispatches (``k2_body`` says which
+body and tile a shape takes). It is the custom operator ``depth_pro::resblock``
 (``resblock_op``), so that a traced graph names it: the plain version for a
 CPU tensor, K2 for a CUDA tensor, and a raise for any other device.
 ``residual_block`` routes like the JAX package: bf16 square-channel blocks
@@ -30,9 +33,11 @@ from .conv import conv2d
 K2 = Kernel(
     name="resblock",
     symbol="resblock_forward",
-    source="ml_depth_pro_video_tpu_torch/csrc/resblock.cu",
+    source="ml_depth_pro_video_tpu_torch/csrc/resblock_wgmma.cu",  # C = 256: every model path
     replaces="ml_depth_pro_video_tpu/ops/resblock.py:129",
 )
+# csrc/resblock.cu::resblock_kernel_body's codes
+K2_BODIES = {0: "mma.sync", 1: "wgmma"}
 
 FUSED_MAX_WIDTH = 96
 K2_MAX_CHANNELS = 256  # one pass of K2's 8 warps x 32 output channels
@@ -44,14 +49,16 @@ def residual_block_reference(x, w1, b1, w2, b2):
     return x + h
 
 
-def k2_tile(bsz: int, h: int, w: int, device: int = 0) -> tuple[int, int]:
-    """The output tile (rows, columns) K2 takes for a (bsz, h, w, C) input on
-    CUDA device ``device``: 10x8 where those tiles give every SM a block, else 6x6."""
-    th, tw = ctypes.c_int(), ctypes.c_int()
-    err = load_library().resblock_tile(bsz, h, w, device, ctypes.byref(th), ctypes.byref(tw))
+def k2_body(bsz: int, h: int, w: int, c: int, device: int = 0) -> tuple[str, tuple[int, int]]:
+    """The body K2 takes for a (bsz, h, w, c) input on CUDA device ``device``
+    (``"wgmma"`` at 256 channels, ``"mma.sync"`` else) and its output tile
+    (rows, columns): a function of the shape alone."""
+    body, th, tw = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = load_library().resblock_kernel_body(bsz, h, w, c, device, ctypes.byref(body),
+                                              ctypes.byref(th), ctypes.byref(tw))
     if err:
-        raise KernelLaunchError(f"resblock_tile returned cudaError {err}")
-    return th.value, tw.value
+        raise KernelLaunchError(f"resblock_kernel_body returned cudaError {err}")
+    return K2_BODIES[body.value], (th.value, tw.value)
 
 
 def _resblock_cuda(x, w1, b1, w2, b2):

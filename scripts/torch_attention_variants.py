@@ -5,9 +5,10 @@ Run from the repository root on a machine with an NVIDIA H100 and ``nvcc``::
     python3 scripts/torch_attention_variants.py [--parent OLD.cu [OLD2.cu ...]] [--fp32]
 
 Builds the shipped attention sources (``csrc/attention_packed.cu``, the
-entry points, and ``csrc/attention_wgmma.cu``, the bf16 hd = 64 body of K1
-and K4) into one library with ``-Xptxas -v`` and prints the registers and
-spill bytes of every hd = 64 kernel instance. ``--parent`` builds an
+entry points, and ``csrc/attention_wgmma.cu``, the bf16 hd = 64 body of K1,
+K3 and K4) into one library with ``-Xptxas -v`` and prints the registers and
+spill bytes of every hd = 64 kernel instance, and any ``ptxas`` warning
+that it serialised wgmma. ``--parent`` builds an
 earlier revision beside it: one source or several (for instance PR 4's
 single ``attention_packed.cu``, from ``git show
 <commit>:ml_depth_pro_video_tpu_torch/csrc/attention_packed.cu`` written to a
@@ -17,9 +18,9 @@ runs the same bf16 inputs at the model's shapes in turns (three rounds, the
 median of the rounds' medians), beside ``scaled_dot_product_attention`` on
 the same views (a yardstick the port never calls), with its largest error
 against the plain version: K1 and K3 on the packed qkv, K4 on (B, H, S, 64)
-q, k, v. Each build's host time per launch (the ctypes call, tensor-map
-encoding included) is read at K1's (2, 577, 3072) over calls that the card
-queues. ``--fp32`` times the fp32 body too.
+q, k, v. Each build's host time per launch (the ctypes call, the device
+rule and tensor-map encoding included) is read at K1's (2, 577, 3072) over
+calls that the card queues. ``--fp32`` times the fp32 body too.
 """
 
 from __future__ import annotations
@@ -50,19 +51,21 @@ from ml_depth_pro_video_tpu_torch.ops.attention import (  # noqa: E402
 
 SOURCES = [loader.CSRC_DIR / "attention_packed.cu", loader.CSRC_DIR / "attention_wgmma.cu"]
 # (B, S, heads, with a bias): the exact path's two shapes at batch 2, one between, the
-# latency, dp and pp shapes of the paths across ranks, the tiers'
+# latency, dp and pp shapes of the paths across ranks, the tiers' at batch 2 and the latency
+# path's at fast
 SHAPES = [(70, 577, 16, False), (2, 577, 16, False), (8, 577, 16, False),
           (18, 577, 16, False), (35, 577, 16, False), (14, 577, 16, False),
-          (70, 577, 8, False), (70, 433, 16, True), (70, 289, 16, True)]
+          (70, 577, 8, False), (70, 433, 16, True), (70, 289, 16, True), (18, 289, 16, True)]
 K4_SHAPES = [(70, 16, 577)]  # (B, H, S): a ViT-L block's attention at batch 2
 HOST_SHAPE = (2, 577, 16)  # K1's host time per launch, at the image ViT's shape
 HOST_CALLS = 200  # fewer than the launch queue holds, so the host never waits on the card
 HD = 64
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _USED = re.compile(r"Used (\d+) registers")
+_SERIALIZED = re.compile(r"wgmma.mma_async instructions are serialized")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _INSTANCE = re.compile(r"attention_(bf16|fp32)_kernelILi(\d+)ELb([01])E(?:Li(\d)E)?")
-_WGMMA = re.compile(r"attention_wgmma_kernelILi(\d)E")
+_WGMMA = re.compile(r"attention_wgmma_kernelILi(\d)E(?:Lb([01])E)?")
 
 
 def ptxas_rows(log: str) -> list[tuple[str, int, int, int]]:
@@ -82,9 +85,10 @@ def ptxas_rows(log: str) -> list[tuple[str, int, int, int]]:
 
 def attention_instance(entry: str) -> str | None:
     """An attention kernel instance's name, where it is one of hd = 64 (the
-    wgmma body's instances are all of hd = 64, bf16, without a bias)."""
+    wgmma body's instances are all of hd = 64, bf16; before it took a bias,
+    its one template argument was the warpgroups)."""
     if wg := _WGMMA.search(entry):
-        return f"wgmma hd={HD} bias=0 warpgroups={wg.group(1)}"
+        return f"wgmma hd={HD} bias={wg.group(2) or 0} warpgroups={wg.group(1)}"
     inst = _INSTANCE.search(entry)
     if not inst or inst.group(2) != str(HD):
         return None
@@ -114,6 +118,9 @@ def build_all(sources: dict, tmp: Path, describe=attention_instance) -> dict:
         for entry, regs, stores, loads in ptxas_rows(out):
             if (inst := describe(entry)) is not None:
                 print(f"[ptxas]   {inst}: {regs} registers, spill stores/loads {stores}/{loads} B")
+        for line in out.splitlines():
+            if _SERIALIZED.search(line):
+                print(f"[ptxas]   {line.strip()}")
         libs[name] = ctypes.CDLL(str(lib))
     return libs
 
@@ -142,10 +149,10 @@ def call_bhsd(lib, q, k, v, out):
         raise RuntimeError(f"launch returned cudaError {err}")
 
 
-def body_of(lib, b: int, s: int, heads: int, dtype, with_bias: bool) -> str:
+def body_of(lib, b: int, s: int, heads: int, dtype) -> str:
     """' [<body> body, <n> queries per block]' of this shape in the shipped build."""
     body, rows = ctypes.c_int(), ctypes.c_int()
-    lib.attention_kernel_body(b, s, heads, HD, int(dtype == torch.bfloat16), int(with_bias), 0,
+    lib.attention_kernel_body(b, s, heads, HD, int(dtype == torch.bfloat16), 0,
                               ctypes.byref(body), ctypes.byref(rows))
     return f" [{BODIES[body.value]} body, {rows.value} queries per block]"
 
@@ -244,7 +251,7 @@ def main() -> int:
                 tag = (f"K{3 if with_bias else 1} ({b},{s},{3 * heads * HD})"
                        f"{' + bias' if with_bias else ''} {dtype}")
                 print_rounds(tag, rounds_of(fns, 100 if b * s < 8192 else 20), errs,
-                             body_of(libs["shipped"], b, s, heads, dtype, with_bias))
+                             body_of(libs["shipped"], b, s, heads, dtype))
         for b, h, s in K4_SHAPES:
             q, k, v = (torch.randn((b, h, s, HD), generator=g, device="cuda").bfloat16()
                        for _ in range(3))
@@ -260,7 +267,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 errs[name] = ((out.float() - ref).abs().max() / ref.abs().max()).item()
             print_rounds(f"K4 ({b},{h},{s},{HD}) torch.bfloat16", rounds_of(fns, 20), errs,
-                         body_of(libs["shipped"], b, s, h, torch.bfloat16, False))
+                         body_of(libs["shipped"], b, s, h, torch.bfloat16))
         b, s, heads = HOST_SHAPE
         qkv = torch.randn((b, s, 3 * heads * HD), generator=g, device="cuda").bfloat16()
         out = torch.empty((b, s, heads * HD), dtype=qkv.dtype, device="cuda")

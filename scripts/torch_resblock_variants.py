@@ -3,17 +3,20 @@ and the plain composition.
 
 Run from the repository root on a machine with an NVIDIA H100 and ``nvcc``::
 
-    python3 scripts/torch_resblock_variants.py [--parent OLD_resblock.cu]
+    python3 scripts/torch_resblock_variants.py [--parent OLD_resblock.cu [OLD2.cu ...]]
 
-Builds ``csrc/resblock.cu`` with ``-Xptxas -v`` and prints the registers and
-spill bytes of every kernel instance. ``--parent`` builds an earlier
-revision of the source beside it (for instance
-``git show <commit>:ml_depth_pro_video_tpu_torch/csrc/resblock.cu`` written
-to a file; a source whose C entry still takes the padded width, as the
-first one did, is called with it); both ``nvcc`` runs start together.
+Builds ``csrc/resblock.cu`` (the entry point, its dispatch and the
+mma.sync body) and ``csrc/resblock_wgmma.cu`` (the wgmma + TMA body that
+takes C = 256) into one library with ``-Xptxas -v`` and prints the
+registers and spill bytes of every kernel instance, and any ``ptxas``
+warning that it serialised wgmma. ``--parent`` builds an earlier revision
+beside it: one source or several, the first holding the C entry (for
+instance ``git show <commit>:ml_depth_pro_video_tpu_torch/csrc/resblock.cu``
+written to a file; a source whose C entry still takes the padded width, as
+the first one did, is called with it); both ``nvcc`` runs start together.
 Then each build and the plain composition (two cuDNN convolutions, two
 ReLUs, the adds: ``residual_block_reference``) run the same bf16 inputs at
-the decoder's four widths at batch 2 in turns (three rounds, the median of
+the decoder's four widths at batch 2 and at the latency mode's two bands in turns (three rounds, the median of
 the rounds' medians, each a median over runs of back-to-back calls, as
 ``chip_smoke.py`` times), each with its device time from the profiler (the
 plain composition's launches leave the card waiting on the host) and each
@@ -44,20 +47,22 @@ from ml_depth_pro_video_tpu_torch.core.precision import disable_tf32  # noqa: E4
 from ml_depth_pro_video_tpu_torch.kernels import loader  # noqa: E402
 from ml_depth_pro_video_tpu_torch.ops.resblock import residual_block_reference  # noqa: E402
 
-SOURCE = loader.CSRC_DIR / "resblock.cu"
+SOURCES = [loader.CSRC_DIR / "resblock.cu", loader.CSRC_DIR / "resblock_wgmma.cu"]
 # the decoder's residual blocks at batch 2: 48^2 and 96^2 run K2 today, 192^2 and 384^2 the
-# plain composition (the width gate)
-SHAPES = [(2, 48, 48, 256), (2, 96, 96, 256), (2, 192, 192, 256), (2, 384, 384, 256)]
-_INSTANCE = re.compile(r"resblock_kernel(?:ILi(\d+)ELi(\d+)E)?")
+# plain composition (the width gate); then the latency mode's bands over 2 ranks, which run K2
+SHAPES = [(2, 48, 48, 256), (2, 96, 96, 256), (2, 192, 192, 256), (2, 384, 384, 256),
+          (1, 26, 48, 256), (1, 50, 96, 256)]
+_INSTANCE = re.compile(r"resblock_(wgmma_)?kernel(?:ILi(\d+)ELi(\d+)E)?")
 _ENTRY_ARGS = re.compile(r'extern "C" int resblock_forward\(([^)]*)\)')
 
 
 def resblock_instance(entry: str) -> str | None:
-    """A K2 kernel instance's name: its output tile, where it is a template."""
+    """A K2 kernel instance's name: its body and output tile, where it is a template."""
     m = _INSTANCE.search(entry)
     if not m:
         return None
-    return f"resblock_kernel tile {m.group(1)}x{m.group(2)}" if m.group(1) else "resblock_kernel"
+    name = f"resblock_{m.group(1) or ''}kernel"
+    return f"{name} tile {m.group(2)}x{m.group(3)}" if m.group(2) else name
 
 
 def entry_arity(source: Path) -> int:
@@ -92,7 +97,8 @@ class Build:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", type=Path, help="an earlier revision of the kernel source")
+    ap.add_argument("--parent", type=Path, nargs="+",
+                    help="an earlier revision of the kernel sources (the C entry's first)")
     ns = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -100,14 +106,14 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(f"[card] {card}")
-    sources = {"shipped": SOURCE}
+    sources = {"shipped": SOURCES}
     if ns.parent:
         sources["parent"] = ns.parent
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         libs = build_all(sources, Path(tmp), describe=resblock_instance)
         print(f"[build] {len(libs)} sources in parallel: {time.perf_counter() - t0:.1f} s")
-        builds = {name: Build(lib, entry_arity(sources[name])) for name, lib in libs.items()}
+        builds = {name: Build(lib, entry_arity(sources[name][0])) for name, lib in libs.items()}
         g = torch.Generator(device="cuda").manual_seed(0)
         for shape in SHAPES:
             c = shape[-1]

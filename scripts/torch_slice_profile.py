@@ -78,10 +78,9 @@ TOP_KERNELS = 25
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # first match wins: cuDNN conv kernels contain "gemm" too, so convs come first
 GROUPS = [
-    ("K3 biased attention (csrc/attention_packed.cu)",
-     r"attention_(bf16|fp32)_kernel<\d+, true[,>]"),
-    ("K1 attention (csrc/attention_packed.cu)", r"attention_(bf16|fp32|wgmma)_kernel"),
-    ("K2 resblock (csrc/resblock.cu)", r"resblock_kernel"),
+    ("K3 biased attention", r"attention_(bf16|fp32|wgmma)_kernel<\d+, true[,>]"),
+    ("K1 attention", r"attention_(bf16|fp32|wgmma)_kernel"),
+    ("K2 resblock", r"resblock_(wgmma_)?kernel"),
     ("conv (cuDNN)", r"conv|fprop|dgrad|wgrad|cudnn"),
     ("GEMM (cuBLAS)", r"nvjet|gemm|cutlass|xmma"),
     ("layer norm", r"layer_norm|LayerNorm"),

@@ -17,9 +17,12 @@ if variants is None:
     sys.modules["torch_attention_variants"] = variants
     _spec.loader.exec_module(variants)
 
-_WGMMA = ("_ZN19depth_pro_attention12_GLOBAL__N_122attention_wgmma_kernelILi{}EEEv14CUtensorMap_"
-          "stS2_S2_NS0_6WgArgsE")
-_BF16 = "_ZN12_GLOBAL__N_121attention_bf16_kernelILi64ELb1ELi{}EEEvNS_4ArgsI13__nv_bfloat16EE"
+_WGMMA = ("_ZN19depth_pro_attention12_GLOBAL__N_122attention_wgmma_kernelILi{}ELb{}EEEv14"
+          "CUtensorMap_stS2_S2_S2_NS0_6WgArgsE")
+# the wgmma body before it took a bias: one template argument, three maps
+_WGMMA_NO_BIAS = ("_ZN19depth_pro_attention12_GLOBAL__N_122attention_wgmma_kernelILi{}EEEv14"
+                  "CUtensorMap_stS2_S2_NS0_6WgArgsE")
+_BF16 = "_ZN12_GLOBAL__N_121attention_bf16_kernelILi{}ELb1EEEvNS_4ArgsI13__nv_bfloat16EE"
 _FP32 = "_ZN12_GLOBAL__N_121attention_fp32_kernelILi{}ELb0EEEvNS_4ArgsIfEE"
 
 
@@ -30,25 +33,43 @@ def _entry(name: str, regs: int, stores: int, loads: int) -> str:
             f"ptxas info    : Used {regs} registers, used 1 barriers, 1024 bytes cmem[0]\n")
 
 
-# two sources in one nvcc run: the entry points' file, then the wgmma body's
-_LOG = ("ptxas info    : 0 bytes gmem\n" + _entry(_BF16.format(2), 128, 0, 0)
+# two sources in one nvcc run: the entry points' file (the mma.sync body at hd 32, the fp32
+# body), then the wgmma body's four instances
+_LOG = ("ptxas info    : 0 bytes gmem\n" + _entry(_BF16.format(32), 128, 0, 0)
         + _entry(_FP32.format(64), 168, 0, 0) + _entry(_FP32.format(32), 96, 0, 0)
-        + "ptxas info    : 0 bytes gmem\n" + _entry(_WGMMA.format(2), 112, 8, 8)
-        + _entry(_WGMMA.format(1), 136, 0, 0))
+        + "ptxas info    : 0 bytes gmem\n" + _entry(_WGMMA.format(2, 0), 95, 0, 0)
+        + _entry(_WGMMA.format(1, 0), 122, 0, 0) + _entry(_WGMMA.format(2, 1), 96, 8, 8)
+        + _entry(_WGMMA.format(1, 1), 122, 0, 0))
 
 
 def test_ptxas_rows_read_both_sources_in_order():
     rows = variants.ptxas_rows(_LOG)
     assert [(regs, stores, loads) for _, regs, stores, loads in rows] == [
-        (128, 0, 0), (168, 0, 0), (96, 0, 0), (112, 8, 8), (136, 0, 0)]
+        (128, 0, 0), (168, 0, 0), (96, 0, 0), (95, 0, 0), (122, 0, 0), (96, 8, 8), (122, 0, 0)]
     assert [variants.attention_instance(entry) for entry, *_ in rows] == [
-        "bf16 hd=64 bias=1 m-tiles=2", "fp32 hd=64 bias=0", None,
-        "wgmma hd=64 bias=0 warpgroups=2", "wgmma hd=64 bias=0 warpgroups=1"]
+        None, "fp32 hd=64 bias=0", None, "wgmma hd=64 bias=0 warpgroups=2",
+        "wgmma hd=64 bias=0 warpgroups=1", "wgmma hd=64 bias=1 warpgroups=2",
+        "wgmma hd=64 bias=1 warpgroups=1"]
 
 
 @pytest.mark.parametrize("c", [1, 2])
-def test_wgmma_instances_are_named_by_their_warpgroups(c):
-    assert variants.attention_instance(_WGMMA.format(c)) == f"wgmma hd=64 bias=0 warpgroups={c}"
+@pytest.mark.parametrize("bias", [0, 1])
+def test_wgmma_instances_are_named_by_their_warpgroups(c, bias):
+    assert (variants.attention_instance(_WGMMA.format(c, bias))
+            == f"wgmma hd=64 bias={bias} warpgroups={c}")
+
+
+@pytest.mark.parametrize("c", [1, 2])
+def test_an_earlier_wgmma_body_s_instances_are_named_too(c):
+    """A parent build from before the bias (one template argument) reads as bias=0."""
+    assert (variants.attention_instance(_WGMMA_NO_BIAS.format(c))
+            == f"wgmma hd=64 bias=0 warpgroups={c}")
+
+
+def test_serialised_wgmma_warnings_are_found():
+    line = ("ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are "
+            "serialized due to insufficient register resources for the function 'f'")
+    assert variants._SERIALIZED.search(line) and not variants._SERIALIZED.search(_LOG)
 
 
 def test_shipped_build_is_both_attention_sources():
@@ -65,3 +86,9 @@ def test_k4_and_every_k1_model_shape_are_timed():
     k1 = {(b, s, h) for b, s, h, bias in variants.SHAPES if not bias}
     assert {(70, 577, 16), (2, 577, 16), (18, 577, 16), (35, 577, 16), (14, 577, 16),
             (70, 577, 8)} <= k1
+
+
+def test_the_tiers_k3_shapes_are_timed():
+    """K3 at balanced and fast at batch 2 and at the latency path's fast slice."""
+    k3 = {(b, s, h) for b, s, h, bias in variants.SHAPES if bias}
+    assert k3 == {(70, 433, 16), (70, 289, 16), (18, 289, 16)}

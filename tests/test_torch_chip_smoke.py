@@ -97,8 +97,8 @@ def test_unpacked_attention_moves_the_same_bytes_as_packed():
 
 
 def test_attention_entries_name_their_body_and_tile():
-    """The fields each K1 and K4 line and JSON entry carries: the body the call
-    took and its tile, queries per block x keys per tile."""
+    """The fields each K1, K3 and K4 line and JSON entry carries: the body the
+    call took and its tile, queries per block x keys per tile."""
     assert chip_smoke.body_fields("wgmma", 128) == {"body": "wgmma", "tile": "128x64"}
     assert chip_smoke.body_fields("mma.sync", 64) == {"body": "mma.sync", "tile": "64x64"}
 
@@ -111,10 +111,24 @@ def test_bf16_head_dim_64_must_take_the_wgmma_body(monkeypatch, body, hd, dtype,
     monkeypatch.setattr(chip_smoke, "attention_body", lambda *args: (body, 128))
     if fails:
         with pytest.raises(AssertionError, match="not wgmma"):
-            chip_smoke.attention_body_checked(70, 577, 16, hd, dtype, "K1")
+            chip_smoke.attention_body_checked(70, 433, 16, hd, dtype, "K3")
     else:
-        assert chip_smoke.attention_body_checked(70, 577, 16, hd, dtype, "K1") == {
+        assert chip_smoke.attention_body_checked(70, 433, 16, hd, dtype, "K3") == {
             "body": body, "tile": "128x64"}
+
+
+@pytest.mark.parametrize("shape,body,fails", [((2, 96, 96, 256), "wgmma", False),
+                                              ((2, 48, 48, 256), "mma.sync", True),
+                                              ((1, 20, 24, 64), "mma.sync", False)])
+def test_k2_at_256_channels_must_take_the_wgmma_body(monkeypatch, shape, body, fails):
+    """Every model shape of K2 (256 channels) must take its wgmma body; other
+    widths may take the mma.sync body; each K2 line and entry names its body and tile."""
+    monkeypatch.setattr(chip_smoke, "k2_body", lambda *args: (body, (6, 14)))
+    if fails:
+        with pytest.raises(AssertionError, match="not wgmma"):
+            chip_smoke.k2_body_checked(shape)
+    else:
+        assert chip_smoke.k2_body_checked(shape) == {"body": body, "tile": "6x14"}
 
 
 _SASS = """
@@ -130,6 +144,37 @@ _SASS = """
         /*0010*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
         /*0020*/              @UP0 HMMA.16816.F32.BF16 R8, R4, R14, R8 ;
 """
+
+
+def _instances(kernel, n, **counts):
+    ops = {"HGMMA": 8, "UTMALDG": 3, "HMMA": 0, "LDSM": 0, **counts}
+    return {f"_ZN{kernel}ILi{i}EE": dict(ops) for i in range(n)}
+
+
+def test_wgmma_sass_check_takes_every_hopper_instance():
+    """The SASS check's names: K1, K3 and K4's four instances (two block sizes,
+    with and without a bias) and K2's two tiles, each with HGMMA and UTMALDG
+    and without HMMA."""
+    assert chip_smoke.WGMMA_KERNELS == {"attention_wgmma_kernel": 4, "resblock_wgmma_kernel": 2}
+    good = {**_instances("attention_wgmma_kernel", 4), **_instances("resblock_wgmma_kernel", 2),
+            **_instances("attention_bf16_kernel", 3, HGMMA=0, UTMALDG=0, HMMA=16)}
+    chip_smoke.check_wgmma_sass(good)
+
+
+@pytest.mark.parametrize("kernel,n,counts", [
+    ("attention_wgmma_kernel", 2, {}),                 # the bias instances missing
+    ("attention_wgmma_kernel", 4, {"HMMA": 2}),        # mma.sync inside the wgmma body
+    ("resblock_wgmma_kernel", 2, {"UTMALDG": 0}),      # K2's weights not loaded by TMA
+    ("resblock_wgmma_kernel", 2, {"HGMMA": 0}),        # K2 not on wgmma
+    ("resblock_wgmma_kernel", 1, {}),                  # a tile missing
+])
+def test_wgmma_sass_check_fails_on_a_missing_or_wrong_instance(kernel, n, counts):
+    other = ("resblock_wgmma_kernel" if kernel == "attention_wgmma_kernel"
+             else "attention_wgmma_kernel")
+    sass = {**_instances(kernel, n, **counts),
+            **_instances(other, chip_smoke.WGMMA_KERNELS[other])}
+    with pytest.raises(AssertionError):
+        chip_smoke.check_wgmma_sass(sass)
 
 
 def test_sass_counts_read_each_function_s_opcodes():

@@ -6,10 +6,12 @@ On a machine with the card run
 ``python -m pytest --noconftest tests/test_torch_kernels.py`` (the suite's
 conftest imports jax, which that machine need not have);
 ``chip_smoke.py`` covers the same ground at the model's full shapes.
-K1 and K4 in bf16 at hd 64 run the wgmma + TMA body (``-k wgmma`` picks
-its own cases: run them under ``timeout`` after a change to it, since a
-fault in its mbarrier ring traps only after 20 s); each case reads the
-body a shape takes from the library's dispatch (``attention_body``).
+K1, K3 and K4 in bf16 at hd 64 run the wgmma + TMA body, and K2 at 256
+channels its own wgmma + TMA body (``-k "wgmma or bias or resblock"`` picks
+their cases: run them under ``timeout`` after a change to either, since a
+fault in an mbarrier ring traps only after 20 s); each case reads the
+body a shape takes from the library's dispatch (``attention_body``,
+``k2_body``).
 Bounds: the attention kernels (K1, K3, K4) fp32 1e-5 of scale (TF32 off),
 bf16 1e-2; K2 bf16 < 2e-2 (the JAX package's resblock band,
 tests/test_ops.py:263).
@@ -54,8 +56,8 @@ def test_attention_kernel_matches_plain(cuda, shape, heads, dtype, bound):
 
 def _wide_grid(batch, heads, s):
     """Whether a bf16 hd=64 call of this shape takes the 128-query blocks (two
-    warpgroups of the wgmma body without a bias, 32 rows per warp of the
-    mma.sync body with one) on this card: csrc/attention.cuh::wide_blocks."""
+    warpgroups of the wgmma body, with or without a bias) on this card:
+    csrc/attention.cuh::wide_blocks."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return batch * heads * -(-s // 128) >= 2 * sms
 
@@ -73,7 +75,8 @@ def _packed_case(cuda, batch, s, heads, hd, dtype, with_bias):
 
 
 # the edges of the 64-key tiles, of the wgmma body's 64-row warpgroups and of the 64- and
-# 128-query blocks, K1 and K3 at hd 64: (1, 2) is a grid that stays on 64-query blocks,
+# 128-query blocks, K1 and K3 at hd 64 (both on the wgmma body in bf16, K3's bias tiles
+# through the same ring): (1, 2) is a grid that stays on 64-query blocks,
 # (24, 16) one that takes the 128-query blocks on a card of up to 192 SMs (the test checks
 # that it does on this one); S = 1 and 65 are where an mbarrier's phase or byte count would
 # hang the wgmma body, 577 the model's
@@ -86,9 +89,9 @@ WGMMA_EDGES = [1, 63, 64, 65, 127, 128, 129, 191, 257, 577]
 @pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
 def test_attention_kernel_tile_edges(cuda, s, batch, heads, wide, with_bias, dtype, bound):
     assert _wide_grid(batch, heads, s) == wide
-    body = "fp32" if dtype == torch.float32 else "mma.sync" if with_bias else "wgmma"
+    body = "fp32" if dtype == torch.float32 else "wgmma"
     rows = 128 if wide and dtype == torch.bfloat16 else 64
-    assert A.attention_body(batch, s, heads, 64, dtype, with_bias) == (body, rows)
+    assert A.attention_body(batch, s, heads, 64, dtype) == (body, rows)
     assert _packed_case(cuda, batch, s, heads, 64, dtype, with_bias) <= bound
 
 
@@ -173,6 +176,33 @@ def test_attention_bias_kernel_takes_minus_inf_keys(cuda, dtype, bound):
     assert _rel(got[:2], ref[:2]) <= bound
 
 
+def _chip_smoke_k3_shapes():
+    import chip_smoke
+
+    return chip_smoke.K3_SHAPES
+
+
+@pytest.mark.parametrize("index", range(7))
+def test_k3_at_every_chip_smoke_shape(cuda, index):
+    """Each K3 shape ``chip_smoke.py`` holds (the tiers' at batch 2 and 1, the
+    latency slice over 2 ranks, ragged ones) in bf16: the wgmma body at head
+    dim 64, the mma.sync body at 16 and 32."""
+    shapes = _chip_smoke_k3_shapes()
+    assert len(shapes) == 7
+    (b, s, d3), heads = shapes[index]
+    hd = d3 // 3 // heads
+    body, _ = A.attention_body(b, s, heads, hd, torch.bfloat16)
+    assert body == ("wgmma" if hd == 64 else "mma.sync")
+    assert _packed_case(cuda, b, s, heads, hd, torch.bfloat16, True) <= 1e-2
+
+
+# the speed tiers' shapes at batch 2 and 1 and the latency slice: K3 on the wgmma body
+@pytest.mark.parametrize("batch,s", [(70, 433), (70, 289), (35, 433), (35, 289), (18, 289)])
+def test_speed_tier_shapes_take_the_wgmma_body_with_a_bias(cuda, batch, s):
+    rows = 128 if _wide_grid(batch, 16, s) else 64
+    assert A.attention_body(batch, s, 16, 64, torch.bfloat16) == ("wgmma", rows)
+
+
 def test_attention_without_bias_launches_k1_only(cuda):
     qkv = torch.randn((2, 65, 384), generator=cuda, device="cuda").bfloat16()
     k1, k3 = A.K1.launches, A.K3.launches
@@ -247,11 +277,10 @@ MODEL_SHAPES = [(70, 577, 16), (35, 577, 16), (2, 577, 16), (1, 577, 16), (18, 5
 
 @pytest.mark.parametrize("batch,s,heads", MODEL_SHAPES)
 def test_model_shapes_take_the_wgmma_body(cuda, batch, s, heads):
-    """K1 and K4 at every model shape take the wgmma body, read from the
-    library's own dispatch (``attention_kernel_body``); K3 and fp32 do not."""
+    """K1, K3 and K4 at every model shape take the wgmma body, read from the
+    library's own dispatch (``attention_kernel_body``); fp32 does not."""
     rows = 128 if _wide_grid(batch, heads, s) else 64
     assert A.attention_body(batch, s, heads, 64, torch.bfloat16) == ("wgmma", rows)
-    assert A.attention_body(batch, s, heads, 64, torch.bfloat16, bias=True) == ("mma.sync", rows)
     assert A.attention_body(batch, s, heads, 64, torch.float32) == ("fp32", 64)
 
 
@@ -290,11 +319,18 @@ def test_resblock_kernel_matches_plain(cuda, shape):
     assert _resblock_case(cuda, shape) < 2e-2
 
 
-def _wide_tiles(batch, h, w):
-    """Whether K2 takes its wide 10x8 tiles for this shape on this card (6x6
-    else): csrc/resblock.cu::wide_tiles."""
+def _wide_tiles(batch, h, w, c):
+    """Whether K2 takes its wide tiles for this shape on this card: at 256
+    channels the wgmma body's 6x14 (8x8 else, csrc/resblock_wgmma.cu::wgmma_tile),
+    at other widths the mma.sync body's 10x8 (6x6 else, csrc/resblock.cu::wide_tiles)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return batch * -(-h // 10) * -(-w // 8) >= sms
+    th, tw = (6, 14) if c == 256 else (10, 8)
+    return batch * -(-h // th) * -(-w // tw) >= sms
+
+
+def _tile(c, wide):
+    return {(True, True): (6, 14), (True, False): (8, 8), (False, True): (10, 8),
+            (False, False): (6, 6)}[(c == 256, wide)]
 
 
 # H and W that are multiples of neither tile side, a single pixel and a single row, at every
@@ -303,19 +339,39 @@ def _wide_tiles(batch, h, w):
 @pytest.mark.parametrize("hw", [(9, 7), (17, 23), (1, 1), (1, 50)])
 @pytest.mark.parametrize("c", [24, 64, 128, 256])
 def test_resblock_kernel_tile_edges(cuda, hw, c):
-    assert not _wide_tiles(2, *hw)
+    assert not _wide_tiles(2, *hw, c)
+    assert R.k2_body(2, *hw, c) == ("wgmma" if c == 256 else "mma.sync", _tile(c, False))
     assert _resblock_case(cuda, (2, *hw, c)) < 2e-2
 
 
-# both tilings of the dispatch: (2, 48, 48) gives 60 10x8 tiles and takes 6x6 ones, the others
-# give at least 168 10x8 tiles (ragged at 61 = 6 * 10 + 1, 57, 101 and 90) and take them, on a
-# card of up to 168 SMs
+# both tilings of each body: at 256 channels (2, 48, 48) gives 64 6x14 tiles and takes 8x8
+# ones, (2, 96, 96) 224 and (3, 61, 57) 165 (ragged at 61 = 10 * 6 + 1 and 57 = 4 * 14 + 1) take
+# them; at 128 and 24 channels (2, 101, 90) gives 264 10x8 tiles (ragged at 101 and 90) and
+# takes them; on a card of up to 165 SMs
 @pytest.mark.parametrize("shape,wide", [((2, 48, 48, 256), False), ((1, 48, 48, 256), False),
                                         ((2, 96, 96, 256), True), ((3, 61, 57, 256), True),
                                         ((2, 101, 90, 128), True), ((2, 101, 90, 24), True)])
 def test_resblock_kernel_tilings(cuda, shape, wide):
-    assert _wide_tiles(*shape[:3]) == wide
-    assert R.k2_tile(*shape[:3]) == ((10, 8) if wide else (6, 6))
+    c = shape[-1]
+    assert _wide_tiles(*shape[:3], c) == wide
+    assert R.k2_body(*shape) == ("wgmma" if c == 256 else "mma.sync", _tile(c, wide))
+    assert _resblock_case(cuda, shape) < 2e-2
+
+
+def _chip_smoke_k2_shapes():
+    import chip_smoke
+
+    return chip_smoke.K2_SHAPES
+
+
+@pytest.mark.parametrize("index", range(9))
+def test_k2_at_every_chip_smoke_shape(cuda, index):
+    """Each K2 shape ``chip_smoke.py`` holds: 256 channels (the decoder's levels, the
+    latency bands, the width gate's 192^2 and 384^2) on the wgmma body, others on mma.sync."""
+    shapes = _chip_smoke_k2_shapes()
+    assert len(shapes) == 9
+    shape = shapes[index]
+    assert R.k2_body(*shape)[0] == ("wgmma" if shape[-1] == 256 else "mma.sync")
     assert _resblock_case(cuda, shape) < 2e-2
 
 

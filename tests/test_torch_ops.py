@@ -437,9 +437,9 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     assert lib.read_text() == "built"
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in f" {c} "]
-    assert len(compiles) == len(loader.sources()) == 3  # headers are not compiled
+    assert len(compiles) == len(loader.sources()) == 4  # headers are not compiled
     assert sorted(c.split()[-1] for c in compiles) == sorted(map(str, loader.sources()))
-    assert len(calls) == 4 and "-shared" in calls[-1].split()
+    assert len(calls) == 5 and "-shared" in calls[-1].split()
     assert sorted(p.name for p in lib.parent.iterdir()) == [loader.LIBRARY_NAME]
 
 
@@ -477,7 +477,7 @@ def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
     path = loader.library_path()
     assert path.parent.parent == loader.BUILD_ROOT and path.name == loader.LIBRARY_NAME
     assert [p.name for p in loader.sources()] == ["attention_packed.cu", "attention_wgmma.cu",
-                                                  "resblock.cu"]
+                                                  "resblock.cu", "resblock_wgmma.cu"]
     monkeypatch.setattr(loader, "NVCC_FLAGS", loader.NVCC_FLAGS + ("-lineinfo",))
     assert loader.library_path() != path
 
@@ -485,17 +485,18 @@ def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
 def test_library_path_is_keyed_by_headers(monkeypatch, tmp_path):
     """An edited ``csrc/*.cuh`` gives a new library path (a stale library is
     never reused), and the headers are not compiled as sources."""
-    assert [p.name for p in loader.headers()] == ["attention.cuh"]
+    assert [p.name for p in loader.headers()] == ["attention.cuh", "common.cuh", "resblock.cuh"]
     for src in loader.sources() + loader.headers():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(loader, "CSRC_DIR", tmp_path)
     path = loader.library_path()
-    assert [p.suffix for p in loader.sources()] == [".cu"] * 3
+    assert [p.suffix for p in loader.sources()] == [".cu"] * 4
     header = tmp_path / "attention.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert loader.library_path() != path
     (tmp_path / "extra.cuh").write_text("#pragma once\n")
-    assert [p.name for p in loader.headers()] == ["attention.cuh", "extra.cuh"]
+    assert [p.name for p in loader.headers()] == ["attention.cuh", "common.cuh", "extra.cuh",
+                                                  "resblock.cuh"]
 
 
 @pytest.mark.parametrize("err,name", [(700, "cudaErrorIllegalAddress"),
@@ -505,7 +506,7 @@ def test_library_path_is_keyed_by_headers(monkeypatch, tmp_path):
                                       (4, "cudaError")])
 def test_launch_error_names(err, name):
     """The entry points' codes: a cudaError_t, or a refused tensor map
-    (``csrc/attention.cuh::kTensorMapError`` + the CUresult)."""
+    (``csrc/common.cuh::kTensorMapError`` + the CUresult)."""
     assert loader.error_name(err) == name
 
 

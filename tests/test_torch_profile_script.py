@@ -23,26 +23,42 @@ def test_busy_in_is_the_clipped_union(intervals, lo, hi, busy):
 
 
 @pytest.mark.parametrize("name,group", [
-    ("attention_bf16_kernel", "K1 attention (csrc/attention_packed.cu)"),
+    ("attention_bf16_kernel", "K1 attention"),
     ("void (anonymous namespace)::attention_bf16_kernel<64, false>((anonymous namespace)::Args)",
-     "K1 attention (csrc/attention_packed.cu)"),
+     "K1 attention"),
     ("void (anonymous namespace)::attention_bf16_kernel<64, true>((anonymous namespace)::Args)",
-     "K3 biased attention (csrc/attention_packed.cu)"),
+     "K3 biased attention"),
     # the bf16 body's third template argument: 16-row m-tiles per warp
     ("void (anonymous namespace)::attention_bf16_kernel<64, true, 2>((anonymous namespace)::Args)",
-     "K3 biased attention (csrc/attention_packed.cu)"),
+     "K3 biased attention"),
     ("void (anonymous namespace)::attention_bf16_kernel<64, false, 2>((anonymous namespace)::Args)",
-     "K1 attention (csrc/attention_packed.cu)"),
-    # the wgmma body of K1 and K4 (csrc/attention_wgmma.cu), both block sizes
+     "K1 attention"),
+    # the wgmma body of K1, K3 and K4 (csrc/attention_wgmma.cu), both block sizes, with and
+    # without a bias; before it took a bias, its one template argument
+    ("void depth_pro_attention::(anonymous namespace)::attention_wgmma_kernel<2, false>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "depth_pro_attention::(anonymous namespace)::WgArgs)",
+     "K1 attention"),
+    ("void depth_pro_attention::(anonymous namespace)::attention_wgmma_kernel<2, true>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "depth_pro_attention::(anonymous namespace)::WgArgs)",
+     "K3 biased attention"),
+    ("void depth_pro_attention::(anonymous namespace)::attention_wgmma_kernel<1, true>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "depth_pro_attention::(anonymous namespace)::WgArgs)",
+     "K3 biased attention"),
     ("void depth_pro_attention::(anonymous namespace)::attention_wgmma_kernel<2>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, depth_pro_attention::(anonymous namespace)::WgArgs)",
-     "K1 attention (csrc/attention_packed.cu)"),
+     "K1 attention"),
     ("void depth_pro_attention::(anonymous namespace)::attention_wgmma_kernel<1>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, depth_pro_attention::(anonymous namespace)::WgArgs)",
-     "K1 attention (csrc/attention_packed.cu)"),
+     "K1 attention"),
     ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<float>",
      "sort / scatter / gather (ToMe merge and others)"),
-    ("resblock_kernel", "K2 resblock (csrc/resblock.cu)"),
+    ("resblock_kernel", "K2 resblock"),
+    ("void depth_pro_resblock::(anonymous namespace)::resblock_wgmma_kernel<6, 14>("
+     "CUtensorMap_st, CUtensorMap_st, const __nv_bfloat16 *, const float *, const float *, "
+     "__nv_bfloat16 *, int, int)", "K2 resblock"),
     ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32", "conv (cuDNN)"),
     ("nvjet_tst_256x136_64x4_2x1_v_bz_coopA_bias_NNT", "GEMM (cuBLAS)"),
     ("Memcpy HtoD (Pinned -> Device)", "copy / cast"),

@@ -15,6 +15,8 @@ _spec.loader.exec_module(variants)
 attention = sys.modules["torch_attention_variants"]
 
 _ENTRY = "_ZN12_GLOBAL__N_115resblock_kernelILi{}ELi{}EEEvPK13__nv_bfloat16S3_PKfS3_S5_PS1_iii"
+_WGMMA = ("_ZN18depth_pro_resblock12_GLOBAL__N_121resblock_wgmma_kernelILi{}ELi{}EEEv14CUtensorMap_"
+          "stS2_PK13__nv_bfloat16PKfS7_PS3_ii")
 _LOG = f"""ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '{_ENTRY.format(8, 8)}' for 'sm_90a'
 ptxas info    : Function properties for {_ENTRY.format(8, 8)}
@@ -28,15 +30,20 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115resblock_kernelEPK1
 ptxas info    : Function properties for _ZN12_GLOBAL__N_115resblock_kernelEPK13__nv_bfloat16S3_PKfS3_S5_PS1_iiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '{_WGMMA.format(6, 14)}' for 'sm_90a'
+ptxas info    : Function properties for {_WGMMA.format(6, 14)}
+    24 bytes stack frame, 160 bytes spill stores, 160 bytes spill loads
+ptxas info    : Used 168 registers, used 2 barriers, 24 bytes cumulative stack size
 """
 
 
 def test_ptxas_rows_pair_each_entry_with_its_registers_and_spills():
     rows = attention.ptxas_rows(_LOG)
     assert [(regs, stores, loads) for _, regs, stores, loads in rows] == [
-        (168, 0, 0), (255, 16, 24), (128, 0, 0)]
+        (168, 0, 0), (255, 16, 24), (128, 0, 0), (168, 160, 160)]
     assert [variants.resblock_instance(entry) for entry, *_ in rows] == [
-        "resblock_kernel tile 8x8", "resblock_kernel tile 6x6", "resblock_kernel"]
+        "resblock_kernel tile 8x8", "resblock_kernel tile 6x6", "resblock_kernel",
+        "resblock_wgmma_kernel tile 6x14"]
 
 
 @pytest.mark.parametrize("entry,name", [
@@ -56,4 +63,14 @@ def test_entry_arity_tells_the_padded_width_entry_apart(tmp_path):
                      'b1,\n const void* w2, const void* b2, void* out, int B, int H, int W, '
                      'int C, int cp,\n int device, void* stream) {')
     assert variants.entry_arity(first) == 13
-    assert variants.entry_arity(variants.SOURCE) == 12
+    assert variants.entry_arity(variants.SOURCES[0]) == 12
+
+
+def test_shipped_build_is_the_entry_and_the_wgmma_body():
+    """The entry point (and the mma.sync body) first, then the wgmma body; the headers they
+    include sit beside them."""
+    assert [p.name for p in variants.SOURCES] == ["resblock.cu", "resblock_wgmma.cu"]
+    for src in variants.SOURCES:
+        for header in ("common.cuh", "resblock.cuh"):
+            assert f'#include "{header}"' in src.read_text()
+            assert (src.parent / header).is_file()
