@@ -1,0 +1,8 @@
+"""gemm_ms_per_frame.video: device milliseconds per frame of the cuBLAS GEMMs in the
+profiled slice."""
+
+from portbench.metrics._slice import ms_per_frame
+
+
+def read(ctx):
+    return ms_per_frame(ctx.slice, "GEMM (cuBLAS)")

@@ -1,0 +1,8 @@
+"""glue_ms_per_frame.video: device milliseconds per frame of the elementwise,
+copy and cast, LayerNorm and GELU kernels in the profiled slice."""
+
+from portbench.metrics._slice import ms_per_frame
+
+
+def read(ctx):
+    return ms_per_frame(ctx.slice, "other elementwise", "copy / cast", "layer norm", "GELU")
