@@ -1,46 +1,35 @@
 """Tracing / profiling utilities.
 
-Twin of ``ml_depth_pro_video_tpu/utils/profiling.py``: a stage timer with
-running averages, an ETA reporter, and a device trace context on
-``torch.profiler`` (CUDA kernels and host ops; the trace opens in
-TensorBoard's profiler plugin or in Perfetto).
+``span`` marks a stretch of host work in a ``torch.profiler`` trace, as a
+``user_annotation`` range on the profiler's own clock, beside the card's
+kernels, copies and memsets. ``device_trace`` is how an operator captures
+such a trace outside the benchmark: host ops, kernels and the spans (for
+instance the phases of ``video/runner.py::DepthVideoRunner.depth_stream``)
+on one timeline, written for TensorBoard's profiler plugin or Perfetto.
+``ETAReporter`` is the JAX package's (``ml_depth_pro_video_tpu/utils/
+profiling.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from collections import defaultdict
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
 
 
-class StageTimer:
-    """Accumulates per-stage wall-clock stats across frames."""
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> dict:
-        return {
-            name: {"total_s": self.totals[name], "count": self.counts[name],
-                   "avg_s": self.totals[name] / max(self.counts[name], 1)}
-            for name in self.totals
-        }
-
-    def report(self) -> str:
-        lines = []
-        for name, s in sorted(self.summary().items(), key=lambda kv: -kv[1]["total_s"]):
-            lines.append(f"{name:30s} {s['total_s']:8.2f}s total  {s['avg_s']*1000:8.1f}ms avg  x{s['count']}")
-        return "\n".join(lines)
+def span(name: str, seq: int | None = None):
+    """A ``record_function`` range called ``name`` (``name#seq`` with a
+    sequence number, e.g. a batch's, which trace readers split off) while a
+    ``torch.profiler`` runs; otherwise a context that does nothing, for the
+    cost of reading one flag. No flag or variable turns it on: a running
+    profiler is the switch."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name if seq is None else f"{name}#{seq}")
 
 
 class ETAReporter:
@@ -61,10 +50,9 @@ class ETAReporter:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str):
-    """``torch.profiler`` trace of the host ops and, where there is a card,
-    its kernels, written to ``log_dir`` as a TensorBoard trace."""
-    import torch
-
+    """``torch.profiler`` trace of the host ops, the ``span`` ranges opened
+    inside it and, where there is a card, its kernels, written to
+    ``log_dir`` as a TensorBoard trace (``*.pt.trace.json``)."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)

@@ -28,6 +28,16 @@ with ``parallel="latency"`` every rank computes each batch together with
 the others (``parallel/latency.py``). ``depth_stream_multihost`` is the pod
 stream: each rank decodes and yields only its own rows. Every rank calls
 the same method with the same items in the same order.
+
+While a ``torch.profiler`` runs, ``depth_stream`` marks what its thread is
+doing with five spans (``utils/profiling.py::span``) that tile its loop:
+``depth_stream.wait_frames`` (blocked on the loader's queue), ``.stage``
+(the batch stacked, padded, pinned, uploaded and normalized), ``.launch``
+(the model, the post-ops and the fetch enqueued, retries included),
+``.collect`` (waiting for a fetch and unpacking it) and ``.caller``
+(suspended at the yields of a collected batch), each named
+``<span>#<batch>``. Each phase ends the one before it, so they never nest
+or overlap; with no profiler running each costs a flag read.
 """
 
 from __future__ import annotations
@@ -61,10 +71,42 @@ from ..parallel.latency import make_latency_infer, make_sp_mesh
 from ..parallel.mesh import batch_sharding, round_batch_to_dp
 from ..parallel.spmd import make_dp_infer
 from ..utils.compile_cache import enable_compilation_cache
+from ..utils.profiling import span
 from . import pack, temporal
 
 LOGGER = logging.getLogger(__name__)
 _STREAM_ERROR = "__stream_error__"
+
+
+class _Phase(threading.local):
+    """The phase that a runner's ``depth_stream`` is in on this thread, and
+    its span.
+
+    ``enter`` ends the open span and opens the next, so the stream's spans
+    tile its loop without nesting. ``move`` is for code that the stream
+    calls (``_forward``): it switches the phase and keeps the batch, and
+    only inside a stream, so that other callers open no span."""
+
+    name = None   # the phase, or None outside depth_stream
+    seq = None    # the batch it works for
+    open = None   # the phase's entered span
+
+    def enter(self, name: str, seq) -> None:
+        if name == self.name and seq == self.seq:
+            return
+        self.end()
+        self.name, self.seq = name, seq
+        self.open = span(f"depth_stream.{name}", seq)
+        self.open.__enter__()
+
+    def move(self, name: str) -> None:
+        if self.name is not None:
+            self.enter(name, self.seq)
+
+    def end(self) -> None:
+        opened, self.open, self.name = self.open, None, None
+        if opened is not None:
+            opened.__exit__(None, None, None)
 
 
 def _image_part(item):
@@ -92,6 +134,7 @@ class _Flight:
     pre_state: object     # the EMA state this batch was smoothed from (None: smoothing off)
     post_state: object    # ... and the state it left
     fetch: tuple          # (host tensors, CUDA event or None)
+    seq: int              # the batch's number in its stream
 
 
 class DepthVideoRunner:
@@ -170,6 +213,7 @@ class DepthVideoRunner:
         self.pipeline_depth = max(int(pipeline_depth), 1)
         self.temporal_smooth = float(temporal_smooth)
         self.fetch_pack = fetch_pack
+        self._phase = _Phase()
         params = build_params(cfg, self.device, rng_seed)
         if quantize:
             params = quantize_vit_weights(params)
@@ -214,26 +258,32 @@ class DepthVideoRunner:
         return self._forward(xs, f_arr, mixed)
 
     def _forward(self, xs: np.ndarray, f_arr: np.ndarray | None, mixed: bool) -> dict:
-        """Upload uint8 frames, normalize on the device and queue the model."""
+        """Upload uint8 frames, normalize on the device and queue the model.
+        Inside ``depth_stream`` the upload is its batch's stage and the model
+        its launch (on a dp mesh: this rank's rows)."""
+        self._phase.move("stage")
         x = torch.from_numpy(xs)
         if self.device.type == "cuda":
             x = x.pin_memory().to(self.device, non_blocking=True)
+        exported = False
         if self._program is not None:
             key = (tuple(x.shape), x.dtype, f_arr is not None, mixed)
-            if key == (self._exported_shape, torch.uint8, False, False):
-                self.exported_calls += 1
-                with torch.inference_mode():
-                    return self._program(self.params, x)
-            if key not in self._eager_keys:
+            exported = key == (self._exported_shape, torch.uint8, False, False)
+            if not exported and key not in self._eager_keys:
                 # without a notice, frames at another size would quietly
                 # never reach the artifact
                 self._eager_keys.add(key)
                 LOGGER.warning("exported artifact does not serve this batch (shape %s dtype %s, "
                                "f_px=%s, mixed=%s; artifact wants %s uint8, no per-frame "
                                "f_px): running eagerly", *key, self._exported_shape)
-        x = x.float() / 127.5 - 1.0
-        f = None if f_arr is None else torch.from_numpy(f_arr).to(self.device)
+        if not exported:
+            x = x.float() / 127.5 - 1.0
+            f = None if f_arr is None else torch.from_numpy(f_arr).to(self.device)
+        self._phase.move("launch")
         with torch.inference_mode():
+            if exported:
+                self.exported_calls += 1
+                return self._program(self.params, x)
             if self._latency is not None:
                 return self._latency[mixed](self.params, x, f)
             return infer_fn(self.params, x, f, self.cfg, self.precision, derive_missing=mixed)
@@ -309,17 +359,10 @@ class DepthVideoRunner:
             from concurrent.futures import ThreadPoolExecutor
             from concurrent.futures.process import BrokenProcessPool
 
-            pex = None
             try:
-                if self.decode_pool == "process":
-                    import multiprocessing
-                    from concurrent.futures import ProcessPoolExecutor
-
-                    # spawn: children import only io.image (numpy, Pillow)
-                    pex = ProcessPoolExecutor(self.decode_workers,
-                                              mp_context=multiprocessing.get_context("spawn"))
-                with ThreadPoolExecutor(self.decode_workers) as ex, \
-                        (pex or contextlib.nullcontext()):
+                with contextlib.ExitStack() as pools:
+                    ex = pools.enter_context(ThreadPoolExecutor(self.decode_workers))
+                    pex = None
                     dq: deque = deque()
                     it = iter(items)
                     exhausted = False
@@ -330,8 +373,18 @@ class DepthVideoRunner:
                             except StopIteration:
                                 exhausted = True
                                 break
-                            if pex is not None and isinstance(_image_part(item),
-                                                              (str, os.PathLike)):
+                            if self.decode_pool == "process" and isinstance(
+                                    _image_part(item), (str, os.PathLike)):
+                                if pex is None:
+                                    # started at the first path: frames in memory start
+                                    # no process. spawn: children import only io.image
+                                    # (numpy, Pillow)
+                                    import multiprocessing
+                                    from concurrent.futures import ProcessPoolExecutor
+
+                                    pex = pools.enter_context(ProcessPoolExecutor(
+                                        self.decode_workers,
+                                        mp_context=multiprocessing.get_context("spawn")))
                                 fut = pex.submit(load_stream_item, item, self.downscale_factor)
                             else:
                                 fut = ex.submit(self._load_one, item)
@@ -364,9 +417,12 @@ class DepthVideoRunner:
         # computation poisons what is chained onto it), so retries re-smooth
         # from here.
         collect_state = None
+        dispatched = 0  # batches so far: the next one's number
 
         def dispatch() -> _Flight:
-            nonlocal pending, smooth_state
+            nonlocal pending, smooth_state, dispatched
+            seq, dispatched = dispatched, dispatched + 1
+            self._phase.enter("stage", seq)
             n = len(pending)
             keys = [p[0] for p in pending]
             imgs = [p[1] for p in pending]
@@ -386,7 +442,7 @@ class DepthVideoRunner:
             inputs = (xs, f_arr, mixed)
             pre_state = smooth_state
             out, smooth_state, fetch = self._run(inputs, pre_state, n)
-            return _Flight(keys, imgs, n, inputs, out, pre_state, smooth_state, fetch)
+            return _Flight(keys, imgs, n, inputs, out, pre_state, smooth_state, fetch, seq)
 
         def heal(state) -> None:
             """Re-chain the later flights' post-ops from a repaired state: if
@@ -399,6 +455,7 @@ class DepthVideoRunner:
             healed = 0
             try:
                 for later in in_flight:
+                    self._phase.enter("launch", later.seq)
                     later.pre_state = state
                     state, parts = self._post(later.out, state, later.n)
                     later.post_state, later.fetch = state, self._start_fetch(parts)
@@ -413,6 +470,7 @@ class DepthVideoRunner:
             nonlocal collect_state
             delay = 5.0
             for attempt in range(self.max_retries + 1):
+                self._phase.enter("collect", flight.seq)
                 try:
                     host, done = flight.fetch
                     if done is not None:
@@ -438,11 +496,14 @@ class DepthVideoRunner:
             *depth_parts, fl = fetched
             depth = (pack.unpack_depth_u16(*depth_parts) if self.fetch_pack == "u16"
                      else depth_parts[0])
-            return [{"key": flight.keys[i], "depth": depth[i], "focallength_px": float(fl[i]),
-                     "image": flight.images[i]} for i in range(flight.n)]
+            results = [{"key": flight.keys[i], "depth": depth[i], "focallength_px": float(fl[i]),
+                        "image": flight.images[i]} for i in range(flight.n)]
+            self._phase.enter("caller", flight.seq)  # until the yields of these are done
+            return results
 
         try:
             while True:
+                self._phase.enter("wait_frames", dispatched)
                 got = q.get()
                 if got is sentinel:
                     break
@@ -464,6 +525,7 @@ class DepthVideoRunner:
             while in_flight:
                 yield from collect(in_flight.popleft())
         finally:
+            self._phase.end()
             stop.set()
             thread.join(timeout=10.0)
 

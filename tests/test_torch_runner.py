@@ -121,6 +121,35 @@ def test_port_runner_reads_paths_in_a_process_pool(checkpoint, tmp_path):
     assert all(np.isfinite(o["depth"]).all() for o in out)
 
 
+@pytest.mark.parametrize("source", ["arrays", "paths"])
+def test_process_pool_starts_at_the_first_path(checkpoint, tmp_path, monkeypatch, source):
+    """With ``decode_pool="process"`` a stream of frames in memory starts no
+    process pool (nor multiprocessing's resource tracker); a stream of paths
+    starts one, at its first path."""
+    import concurrent.futures
+
+    real, made = concurrent.futures.ProcessPoolExecutor, []
+
+    def pool(*args, **kwargs):
+        if source == "arrays":
+            raise AssertionError("a process pool for frames in memory")
+        made.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(concurrent.futures, "ProcessPoolExecutor", pool)
+    items = _frames(3, 32, 48)
+    if source == "paths":
+        for i, img in enumerate(items):
+            Image.fromarray(img).save(tmp_path / f"f{i}.png")
+        items = [str(tmp_path / f"f{i}.png") for i in range(3)]
+    runner = DepthVideoRunner(cfg=dataclasses.replace(tiny_config(), checkpoint_uri=checkpoint),
+                              precision="fp32", batch_size=2, decode_workers=1,
+                              decode_pool="process", device="cpu")
+    out = list(runner.depth_stream(items))
+    assert len(out) == 3 and all(np.isfinite(o["depth"]).all() for o in out)
+    assert made == ([1] if source == "paths" else [])
+
+
 def test_runner_retries_device_errors_only(checkpoint, monkeypatch):
     from ml_depth_pro_video_tpu_torch.video import runner as runner_mod
 
