@@ -18,7 +18,10 @@ Phases (each prints its own lines; any failure exits non-zero):
 3. kernels: K1 (packed attention), K2 (fused resblock), K3 (packed attention
    with a per-key bias, -inf keys included) and K4 (attention on (B, H, S, D))
    against their plain PyTorch versions on the card at the shapes the paths
-   give them and at ragged ones, with the error bound stated; each timed
+   give them and at ragged ones, and K5 (the ViT block's residual add with
+   LayerScale and the LayerNorm after it, ``ops/norm.py``) in each of its
+   three modes at the patch and image ViTs' residual streams, its ``x_new``
+   equal to the plain composition's bit for bit, with the error bound stated; each timed
    with CUDA events beside its plain version, beside one PyTorch call that
    computes the same function where there is one (``library_ms``:
    ``scaled_dot_product_attention`` on the same views, a yardstick the port
@@ -336,6 +339,12 @@ from ml_depth_pro_video_tpu_torch.ops.attention import (
     attention_reference,
     multi_head_attention,
 )
+from ml_depth_pro_video_tpu_torch.ops.norm import (
+    K5,
+    add_layer_norm,
+    add_layer_norm_reference,
+    layer_norm_reference,
+)
 from ml_depth_pro_video_tpu_torch.ops.resblock import (
     FUSED_MAX_WIDTH,
     K2,
@@ -375,7 +384,7 @@ from ml_depth_pro_video_tpu_torch.video.temporal import (
 
 SEED = 0
 BATCH = 2  # the slice's batch size: K1 sees (35*BATCH, 577, 3072) and (BATCH, 577, 3072)
-KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
+KERNELS = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "K5": K5}
 # slice shapes at batch 1 and at BATCH, the latency slice over 2 ranks, the train_parallel
 # phase's tp-local heads at BATCH (8 of 16 per rank) and its pp microbatch (70 patch rows / 5),
 # then ragged ones; (2, 65, 192) with 2 heads is hd=32
@@ -408,12 +417,15 @@ K2_SHAPES = [(BATCH, 48, 48, 256), (BATCH, 96, 96, 256), (1, 48, 48, 256), (1, 2
              (BATCH, 384, 384, 256)]
 TIMED_FRAMES = 96  # the fps window: ~6 s at the large preset, after a warm-up stream
 K2_BOUND = 2e-2  # bf16 tap-accumulation band of the JAX package's own test
+# K5 per ViT pass: 3 a block (models/vit.py::_block: the first LayerNorm, the attention residual
+# with the second, the MLP residual), 1 for the final norm
 PER_FORWARD = {  # kernel launches per forward of the large preset
-    "exact": {"K1": 72, "K2": 3, "K3": 0, "K4": 0},  # 24 blocks x 3 ViTs; 3 decoder resblocks
+    # 24 blocks x 3 ViTs; 3 decoder resblocks; K5: 3 x (72 + 1)
+    "exact": {"K1": 72, "K2": 3, "K3": 0, "K4": 0, "K5": 219},
     # patch ViT blocks 0-1 exact, the merge, blocks 2-23 with the size bias; image and FOV
     # ViTs exact
-    "balanced": {"K1": 50, "K2": 3, "K3": 22, "K4": 0},
-    "fast": {"K1": 50, "K2": 3, "K3": 22, "K4": 0},
+    "balanced": {"K1": 50, "K2": 3, "K3": 22, "K4": 0, "K5": 219},
+    "fast": {"K1": 50, "K2": 3, "K3": 22, "K4": 0, "K5": 219},
 }
 # JAX package's bf16-vs-fp32 envelope on TPU v5e (docs/PERFORMANCE.md:402), share of scale
 TPU_ENVELOPE = {"median": 3.6e-4, "p99": 4.6e-3, "max": 1.09e-2}
@@ -480,18 +492,21 @@ EXPORT_CUT = dataclasses.replace(model_preset("large"),
                                  vit=dataclasses.replace(model_preset("large").vit, depth=8),
                                  hook_block_ids=(1, 3))
 # per forward of EXPORT_CUT at balanced: patch ViT blocks 0-1 exact, the merge, blocks 2-7 with
-# the size bias; image and FOV ViTs 8 blocks each
-EXPORT_CUT_PER_FORWARD = {"K1": 18, "K2": 3, "K3": 6, "K4": 0}
+# the size bias; image and FOV ViTs 8 blocks each. K5: 3 x (3 x 8 + 1)
+EXPORT_CUT_PER_FORWARD = {"K1": 18, "K2": 3, "K3": 6, "K4": 0, "K5": 75}
 # ... and at exact (the parallel phase's --dp 2 artifact): 8 blocks x 3 ViTs
-PARALLEL_EXPORT_PER_FORWARD = {"K1": 24, "K2": 3, "K3": 0, "K4": 0}
+PARALLEL_EXPORT_PER_FORWARD = {"K1": 24, "K2": 3, "K3": 0, "K4": 0, "K5": 75}
 TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"  # ignored by git
 TRAIN_PAIRS = 8  # write_dataset pairs of 512^2, resized to 1536^2 by DepthDataset: 4 steps at BATCH
 # per training step of the large preset (loss_fn: remat, no FOV head): 24 blocks x 2 ViTs in the
 # forward and again in the per-block recompute of the backward; the 3 decoder resblocks (48^2,
-# 96^2, 96^2) once, not recomputed. Backward through K1 and K2 is the plain math (no kernel)
-PER_TRAIN_STEP = {"K1": 96, "K2": 3, "K3": 0, "K4": 0}
-# the small student (ViT-S, 12 blocks, 6 heads x 64; decoder 96 wide): 12 x 2 x 2 K1, 3 K2
-PER_STUDENT_STEP = {"K1": 48, "K2": 3, "K3": 0, "K4": 0}
+# 96^2, 96^2) once, not recomputed. Backward through K1, K2 and K5 is the plain math (no
+# kernel). K5: 2 x (3 x 24 + 1) in the forward, and the 3 of each of the 48 blocks again in
+# the recompute (the final norm is outside the recomputed blocks)
+PER_TRAIN_STEP = {"K1": 96, "K2": 3, "K3": 0, "K4": 0, "K5": 290}
+# the small student (ViT-S, 12 blocks, 6 heads x 64; decoder 96 wide): 12 x 2 x 2 K1, 3 K2;
+# K5: 2 x (3 x 12 + 1), then 3 x 24 recomputed
+PER_STUDENT_STEP = {"K1": 48, "K2": 3, "K3": 0, "K4": 0, "K5": 146}
 DISTILL_FRAMES = 4  # labelled by a large teacher at BATCH: 2 forwards; the student takes 2 steps
 # one loss + backward with the kernels against the same with the plain versions routed in (large,
 # bf16, batch 2, the trained params): the loss's relative difference, the flattened gradient's
@@ -597,10 +612,18 @@ def kernel_times(fn, calls: int = 10) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def device_ms(fn, calls: int = 10) -> float:
+def device_ms(fn, calls: int = 10, tries: int = 3) -> float:
     """Device time of one call: its kernels' own time summed by the profiler
-    over ``calls`` calls, without the gaps where the card waits on the host."""
-    return sum(ms for _, ms in kernel_times(fn, calls))
+    over ``calls`` calls, without the gaps where the card waits on the host.
+    A profile that holds no kernel time (the profiler can come back with no
+    kernel records) is taken again, up to ``tries`` profiles; if none holds
+    any, this raises rather than return a time of 0."""
+    for _ in range(tries):
+        ms = sum(ms for _, ms in kernel_times(fn, calls))
+        if ms > 0:
+            return ms
+    raise RuntimeError(f"the profiler recorded no kernel time in {tries} profiles of {calls} "
+                       "calls each")
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
@@ -927,9 +950,69 @@ def kernels_k2(g) -> dict:
     return report
 
 
+# K5 at the patch ViT's residual stream at BATCH (exact, then fast) and the image ViT's
+K5_SHAPES = [(35 * BATCH * 577, 1024), (35 * BATCH * 289, 1024), (BATCH * 577, 1024)]
+K5_MODES = {"add_norm": (True, True), "norm": (False, True), "add": (True, False)}
+K5_ULPS = 1  # bf16 ulps per element (the statistics are summed in another order)
+
+
+def bf16_ulps(y: torch.Tensor, want: torch.Tensor, bias: torch.Tensor) -> float:
+    """Largest |y - want| over elements, in bf16 ulps (2^(e - 7) for a value in
+    [2^e, 2^(e+1))) at the larger of |want| and |bias|: where the normalised
+    value times the gain and the bias nearly cancel, the rounding of those
+    terms outweighs the small output's own ulp."""
+    scale = torch.maximum(want.float().abs(), bias.float().abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(scale)) - 7)
+    return ((y.float() - want.float()).abs() / ulp).max().item()
+
+
+def kernels_k5(g) -> dict:
+    """K5 in each mode against the plain composition: ``x_new`` bit for bit,
+    each element of the LayerNorm output within ``K5_ULPS`` bf16 ulps
+    (``bf16_ulps``); timed beside it at the exact patch ViT's shape, the add
+    and LayerNorm mode's entry at the top level."""
+    report = {}
+    for shape in K5_SHAPES:
+        rows, d = shape
+        for mode, (add, norm) in K5_MODES.items():
+            x = (torch.randn(shape, generator=g, device="cuda") * 3).to(torch.bfloat16)
+            branch = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16) if add
+                      else None)
+            ls = torch.rand(d, generator=g, device="cuda") if add else None
+            gain = torch.randn(d, generator=g, device="cuda") if norm else None
+            bias = torch.randn(d, generator=g, device="cuda") * 0.1 if norm else None
+            ins = (x, branch, ls, gain, bias)
+            got, ref = add_layer_norm(*ins), add_layer_norm_reference(*ins)
+            torch.cuda.synchronize()
+            if add and not torch.equal(got[0], ref[0]):
+                raise AssertionError(f"K5 {mode} {shape}: x_new differs from torch.addcmul's")
+            err, rel = rel_err(got[1], ref[1]) if norm else (0.0, 0.0)
+            ulps = bf16_ulps(got[1], ref[1], bias) if norm else 0.0
+            line = (f"[kernels] K5 add_layer_norm {mode} bf16 {shape}: x_new "
+                    f"{'equal' if add else 'not computed'}, LayerNorm max_abs_err={err:.3e} "
+                    f"rel={rel:.3e}, {ulps:g} bf16 ulps at most (bound {K5_ULPS})")
+            if rows == 35 * BATCH * 577:
+                moved = nbytes(*(t for t in ins if t is not None)) + nbytes(
+                    *(t for t in (got[0] if add else None, got[1]) if t is not None))
+                times, suffix = timed(lambda: add_layer_norm(*ins),
+                                      lambda: add_layer_norm_reference(*ins), None,
+                                      8.0 * rows * d, moved, torch.bfloat16)
+                line += suffix
+                if mode == "add_norm":
+                    report.update(report_entry(err, rel, times, shape, torch.bfloat16))
+                else:
+                    report[mode] = report_entry(err, rel, times, shape, torch.bfloat16)
+            log(line)
+            if not ulps <= K5_ULPS:
+                raise AssertionError(f"K5 {mode} {shape}: LayerNorm output {ulps:g} bf16 ulps "
+                                     f"off, above {K5_ULPS}")
+    return report
+
+
 def phase_kernels() -> dict:
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    return {"K1": kernels_k1(g), "K2": kernels_k2(g), "K3": kernels_k3(g), "K4": kernels_k4(g)}
+    return {"K1": kernels_k1(g), "K2": kernels_k2(g), "K3": kernels_k3(g), "K4": kernels_k4(g),
+            "K5": kernels_k5(g)}
 
 
 def reset_launches() -> None:
@@ -2145,7 +2228,7 @@ def phase_unpacked_entry() -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"[unpacked] multi_head_attention {tuple(q.shape)} bf16: launches {launches}")
-    if launches != {"K1": 0, "K2": 0, "K3": 0, "K4": 1} or not torch.isfinite(out).all():
+    if launches != {"K1": 0, "K2": 0, "K3": 0, "K4": 1, "K5": 0} or not torch.isfinite(out).all():
         raise AssertionError(f"multi_head_attention: launches {launches}, finite "
                              f"{bool(torch.isfinite(out).all())}")
     return launches
@@ -2449,13 +2532,18 @@ def split_step(state, cfg, batch) -> dict:
 
 @contextlib.contextmanager
 def routed(plain: bool):
-    """With ``plain``, the ViT attention and the decoder residual blocks
-    routed to their plain versions (the module names the model code looks
-    up), and a check that nothing inside launched a kernel."""
-    real_attn, real_res = vit_module.attention_packed, depth_pro_module.residual_block
+    """With ``plain``, the ViT attention, its residual adds and LayerNorms and
+    the decoder residual blocks routed to their plain versions (the module
+    names the model code looks up), and a check that nothing inside launched
+    a kernel."""
+    names = {(vit_module, "attention_packed"): attention_packed_reference,
+             (vit_module, "add_layer_norm"): add_layer_norm_reference,
+             (vit_module, "layer_norm"): layer_norm_reference,
+             (depth_pro_module, "residual_block"): residual_block_reference}
+    real = {key: getattr(*key) for key in names}
     if plain:
-        vit_module.attention_packed = attention_packed_reference
-        depth_pro_module.residual_block = residual_block_reference
+        for (module, name), fn in names.items():
+            setattr(module, name, fn)
     try:
         before = read_launches()
         yield
@@ -2463,7 +2551,8 @@ def routed(plain: bool):
         if plain and read_launches() != before:
             raise AssertionError("the plain run launched a kernel")
     finally:
-        vit_module.attention_packed, depth_pro_module.residual_block = real_attn, real_res
+        for (module, name), fn in real.items():
+            setattr(module, name, fn)
 
 
 # the three runs held against each other: (precision, plain versions routed in)
@@ -3554,6 +3643,19 @@ def train_parallel_shapes(cfg: DepthProConfig, mode: str, batch: int = BATCH) ->
     return {f"K1 {35 * per}x{s}x{width}": 2 * vit.depth, f"K1 {per}x{s}x{width}": 2 * vit.depth}
 
 
+def train_parallel_k5(cfg: DepthProConfig, mode: str) -> int:
+    """K5 launches per rank per step of one mode: dp and tp as the one-rank
+    step; pp: 3 for each of the stage's patch blocks per microbatch and 3
+    again in the recompute, the final norm once on the banked output, the
+    image ViT whole."""
+    kw = TRAIN_PARALLEL_MODES[mode]
+    if "pp" not in kw:
+        return PER_TRAIN_STEP["K5"]
+    depth = cfg.vit.depth
+    blocks = kw["microbatches"] * depth // TRAIN_PARALLEL_RANKS
+    return 6 * blocks + 1 + (3 * depth + 1) + 3 * depth
+
+
 def check_train_parallel(res: list, one_fit: dict, wall: float) -> dict:
     """The parent's checks and lines of the ``train_parallel`` phase; returns
     both ranks' launches over the three steps and the 2-rank ``fit``."""
@@ -3568,7 +3670,8 @@ def check_train_parallel(res: list, one_fit: dict, wall: float) -> dict:
     total = {k: 0 for k in KERNELS}
     for mode in TRAIN_PARALLEL_MODES:
         want_shapes = train_parallel_shapes(cfg, mode)
-        want = {"K1": sum(want_shapes.values()), "K2": 3, "K3": 0, "K4": 0}
+        want = {"K1": sum(want_shapes.values()), "K2": 3, "K3": 0, "K4": 0,
+                "K5": train_parallel_k5(cfg, mode)}
         for r in res:
             got = r[mode]
             total.update({k: total[k] + got["launches"][k] for k in KERNELS})
@@ -3609,12 +3712,12 @@ def check_train_parallel(res: list, one_fit: dict, wall: float) -> dict:
         f"equal to each rank's state bit for bit: {[r['tp']['shard_equal'] for r in res]}")
     if not (tp["one_rank_equal"] and all(r["tp"]["shard_equal"] for r in res)):
         raise AssertionError("train_parallel: the tp=2 checkpoint did not restore bit for bit")
-    # fit over the 2 ranks (dp=2) against fit on one rank, in fp32 (K2 is bf16 only): per
-    # step, 96 K1 (each block's forward and its recompute); the validation's forward 48 K1
+    # fit over the 2 ranks (dp=2) against fit on one rank, in fp32 (K2 and K5 are bf16 only):
+    # per step, 96 K1 (each block's forward and its recompute); the validation's forward 48 K1
     fits = [r["fit"] for r in res]
-    per_step = {"K1": 96, "K2": 0, "K3": 0, "K4": 0}
+    per_step = {"K1": 96, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
     steps = (TRAIN_PARALLEL_PAIRS - TRAIN_PARALLEL_HOLDOUT) // BATCH
-    want = {"K1": steps * 96 + 48, "K2": 0, "K3": 0, "K4": 0}
+    want = {"K1": steps * 96 + 48, "K2": 0, "K3": 0, "K4": 0, "K5": 0}
     for f in fits + [one_fit]:
         if [s["launches"] for s in f["steps"]] != [per_step] * steps or f["launches"] != want:
             raise AssertionError(f"train_parallel fit: launched {f['launches']}, per step "

@@ -14,7 +14,7 @@ one is reused. A failed build raises; there
 is no fallback.
 
 Each :class:`Kernel` is launched from the CUDA kernel of its ``torch.library``
-custom operator (``ops/attention.py``, ``ops/resblock.py``), the one place
+custom operator (``ops/attention.py``, ``ops/resblock.py``, ``ops/norm.py``), the one place
 that reads data pointers and the stream. ``Kernel.launches`` counts those
 launches whether eager code or an exported program (``ckpt/export.py``)
 called the operator.
@@ -65,6 +65,8 @@ _SIGNATURES = {
     "resblock_kernel_body": ((_i, _i, _i, _i, _i, _pi, _pi, _pi), _i),
     # B, S, H, hd, is_bf16, device -> body, queries per block
     "attention_kernel_body": ((_i, _i, _i, _i, _i, _i, _pi, _pi), _i),
+    # x, branch, ls, g, b, x_out, y_out, rows, D, eps, device, stream
+    "add_layer_norm_forward": ((_p,) * 7 + (ctypes.c_longlong, _i, _f, _i, _p), _i),
 }
 
 # names of the cudaError_t codes a launch can plausibly return

@@ -13,6 +13,10 @@ after a ToMe token merge, which carry the merged tokens' log sizes as a
 per-key score bias (``compute_token_merge``, the speed tiers). The block
 matmul weights may be int8 codes with per-channel scales
 (``ckpt/quantize.py``), dequantized to the compute dtype per matmul.
+The residual adds with their LayerScale and the LayerNorms go through
+``ops.norm`` (kernel K5 on CUDA in bf16): a block's first LayerNorm, its
+attention residual with the LayerNorm after it, and its MLP residual, each
+one call.
 
 Under tensor parallelism (``tp``, a ``parallel/sharding.py::TensorParallel``
 passed down ``vit_apply`` -> ``_run_blocks`` -> ``_block``) a block runs on
@@ -35,7 +39,7 @@ from ..ckpt.params import ParamTree
 from ..ckpt.quantize import materialize_weight
 from ..core.precision import Precision
 from ..ops.attention import attention_packed
-from ..ops.norm import layer_norm
+from ..ops.norm import add_layer_norm, layer_norm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,19 +115,17 @@ def _unstack(blocks: dict, depth: int) -> list[dict]:
 
 def _block(x: torch.Tensor, bp: dict, cfg: ViTConfig,
            key_bias: torch.Tensor | None = None, tp=None) -> torch.Tensor:
-    cdt = x.dtype
     heads = cfg.num_heads if tp is None else cfg.num_heads // tp.size
     h = layer_norm(x, bp["ln1_g"], bp["ln1_b"], cfg.layer_norm_eps)
     if tp is not None:
         h = tp.copy(h)
     attn = attention_packed(_dense(h, bp["qkv_w"], bp["qkv_b"]), heads, key_bias)
-    x = torch.addcmul(x, bp["ls1"].to(cdt), _dense_rows(attn, bp["proj_w"], bp["proj_b"], tp))
-
-    h = layer_norm(x, bp["ln2_g"], bp["ln2_b"], cfg.layer_norm_eps)
+    x, h = add_layer_norm(x, _dense_rows(attn, bp["proj_w"], bp["proj_b"], tp), bp["ls1"],
+                          bp["ln2_g"], bp["ln2_b"], cfg.layer_norm_eps)
     if tp is not None:
         h = tp.copy(h)
     h = F.gelu(_dense(h, bp["fc1_w"], bp["fc1_b"]))
-    return torch.addcmul(x, bp["ls2"].to(cdt), _dense_rows(h, bp["fc2_w"], bp["fc2_b"], tp))
+    return add_layer_norm(x, _dense_rows(h, bp["fc2_w"], bp["fc2_b"], tp), bp["ls2"])[0]
 
 
 def _run_blocks(x: torch.Tensor, layers: list, lo: int, hi: int, cfg: ViTConfig,

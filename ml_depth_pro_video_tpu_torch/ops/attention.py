@@ -230,12 +230,20 @@ attention_bhsd_op.register_fake(lambda q, k, v: q.new_empty(q.shape))
 
 def plain_vjp(fn, inputs, grad, needs=None) -> tuple:
     """Gradients of ``fn(*inputs)`` against ``grad`` through its plain math,
-    for the inputs ``needs`` marks (all by default; None for the others)."""
+    for the inputs ``needs`` marks (all by default; None for the others and
+    for an input that is None). Where ``fn`` returns a tuple, ``grad`` is a
+    tuple too, and an output that needs no gradient (an operator's empty
+    placeholder) is left out."""
     needs = needs or (True,) * len(inputs)
     with torch.enable_grad():
-        ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
-        grads = iter(torch.autograd.grad(fn(*ins), [t for t in ins if t.requires_grad], grad))
-    return tuple(next(grads) if n else None for n in needs)
+        ins = [t if t is None else t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        outs = fn(*ins)
+        if isinstance(outs, torch.Tensor):
+            outs, grad = (outs,), (grad,)
+        pairs = [(o, g) for o, g in zip(outs, grad) if o.requires_grad]
+        wanted = [t for t in ins if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs]))
+    return tuple(next(grads) if t is not None and t.requires_grad else None for t in ins)
 
 
 def save_inputs(ctx, inputs, output):

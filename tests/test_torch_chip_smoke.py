@@ -96,6 +96,32 @@ def test_unpacked_attention_moves_the_same_bytes_as_packed():
     assert chip_smoke.nbytes(*qkvo) == _packed(70, 577, 16, 64, torch.bfloat16, False)
 
 
+@pytest.mark.parametrize("readings,want", [([0.0, 0.25], 0.25), ([0.5], 0.5),
+                                           ([0.0, 0.0, 0.0], None)])
+def test_device_ms_retakes_a_profile_with_no_kernel_time(monkeypatch, readings, want):
+    """A profile whose kernels sum to no time is taken again; three such
+    profiles raise instead of giving 0 ms, which a ratio would divide by."""
+    left = iter(readings)
+    monkeypatch.setattr(chip_smoke, "kernel_times",
+                        lambda fn, calls: [("k", next(left) / 2), ("k2", 0.0)] * 2)
+    if want is None:
+        with pytest.raises(RuntimeError, match="no kernel time in 3 profiles"):
+            chip_smoke.device_ms(lambda: None)
+    else:
+        assert chip_smoke.device_ms(lambda: None) == want
+
+
+@pytest.mark.parametrize("want,bias,got,ulps", [
+    (1.0, 0.0, 1.0 + 2.0 ** -7, 1.0),  # one ulp at 1 is 2^-7
+    (1.5, 0.0, 1.5 - 2.0 ** -6, 2.0),
+    (0.0078125, 0.5, 0.0078125 + 2.0 ** -8, 1.0),  # the bias's ulp (2^-8) where it is larger
+    (-3.0, 0.0, -3.0, 0.0),
+])
+def test_bf16_ulps_counts_at_the_larger_of_output_and_bias(want, bias, got, ulps):
+    t = lambda v: torch.tensor([v, 2.0])  # noqa: E731
+    assert chip_smoke.bf16_ulps(t(got), t(want), torch.tensor([bias, 0.0])) == ulps
+
+
 def test_attention_entries_name_their_body_and_tile():
     """The fields each K1, K3 and K4 line and JSON entry carries: the body the
     call took and its tile, queries per block x keys per tile."""
@@ -274,7 +300,7 @@ def test_pipeline_phase_expects_72_k1_and_3_k2_per_forward():
     forwards = chip_smoke.pipeline_forwards(chip_smoke.PIPELINE_FRAMES)
     assert forwards == 5
     want = {name: n * forwards for name, n in chip_smoke.PER_FORWARD["exact"].items()}
-    assert want == {"K1": 360, "K2": 15, "K3": 0, "K4": 0}
+    assert want == {"K1": 360, "K2": 15, "K3": 0, "K4": 0, "K5": 1095}
 
 
 def test_shape_flags_follow_scikit_learn(monkeypatch):
@@ -336,9 +362,9 @@ def test_device_pipeline_and_effect_expect_the_exact_launches():
     batches; effect: one forward per image, the parallax PNG and the anaglyph."""
     forwards = chip_smoke.pipeline_forwards(chip_smoke.PIPELINE_FRAMES)
     assert {k: n * forwards for k, n in chip_smoke.PER_FORWARD["exact"].items()} == {
-        "K1": 360, "K2": 15, "K3": 0, "K4": 0}
+        "K1": 360, "K2": 15, "K3": 0, "K4": 0, "K5": 1095}
     assert {k: n * 2 for k, n in chip_smoke.PER_FORWARD["exact"].items()} == {
-        "K1": 144, "K2": 6, "K3": 0, "K4": 0}
+        "K1": 144, "K2": 6, "K3": 0, "K4": 0, "K5": 438}
     duration, fps = chip_smoke.EFFECT_FRAMES
     assert int(duration * fps) == 8
 
@@ -384,7 +410,7 @@ def test_serve_launches_per_forward_come_from_the_batches_metrics_counts():
     assert forwards == 5 and metrics["depthpro_requests_total"] == 12
     assert metrics["depthpro_batch_fill_ratio"] == pytest.approx(12 / 20)
     want = {k: n * forwards for k, n in chip_smoke.PER_FORWARD["exact"].items()}
-    assert want == {"K1": 360, "K2": 15, "K3": 0, "K4": 0}
+    assert want == {"K1": 360, "K2": 15, "K3": 0, "K4": 0, "K5": 1095}
     # the phase's own count of requests: lone, concurrent, npz, png16, the session stream twice
     sent = chip_smoke.SERVE_LONE + chip_smoke.SERVE_REQUESTS + 2 + 2 * chip_smoke.SERVE_SESSION
     assert sent == 50
@@ -422,9 +448,34 @@ def test_count_process_starts_counts_spawned_processes_only(monkeypatch):
     assert chip_smoke.count_process_starts(lambda: setattr(tracker, "_pid", pid)) == (None, 1)
 
 
+def _count_k5(patch) -> dict:
+    """Count K5's calls (the ViT's ``add_layer_norm`` and ``layer_norm``, the
+    pipeline's final norm) and the ViT blocks run, through the names the
+    model code looks up; ``patch(module, name, fn)`` installs each counter.
+    On meta tensors the calls take the plain composition; on the card each
+    is one K5 launch."""
+    from ml_depth_pro_video_tpu_torch.models import vit as vit_module
+    from ml_depth_pro_video_tpu_torch.parallel import pipeline
+
+    counts = {"K5": 0, "blocks": 0}
+
+    def counted(fn, key):
+        def call(*args, **kwargs):
+            counts[key] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for module, name, key in ((vit_module, "add_layer_norm", "K5"),
+                              (vit_module, "layer_norm", "K5"), (pipeline, "layer_norm", "K5"),
+                              (vit_module, "_block", "blocks")):
+        patch(module, name, counted(getattr(module, name), key))
+    return counts
+
+
 def _launches_per_forward(cfg, batch=2):
-    """K1 / K3 / K2 calls of one bf16 forward without the FOV head, counted on
-    meta tensors (shapes only) through the names the model code looks up."""
+    """K1 / K3 / K2 / K5 calls of one bf16 forward without the FOV head, and
+    the ViT blocks run, counted on meta tensors (shapes only) through the
+    names the model code looks up."""
     from ml_depth_pro_video_tpu_torch.ckpt.params import init_depth_pro
     from ml_depth_pro_video_tpu_torch.models import depth_pro as dp
     from ml_depth_pro_video_tpu_torch.models import vit as vit_module
@@ -432,7 +483,7 @@ def _launches_per_forward(cfg, batch=2):
     from ml_depth_pro_video_tpu_torch.core.precision import Precision
 
     counts = {"K1": 0, "K2": 0, "K3": 0}
-    real_attn, real_fused = vit_module.attention_packed, resblock.fused_residual_block
+    real_attn = vit_module.attention_packed
 
     def attn(qkv, heads, key_bias=None):
         counts["K1" if key_bias is None else "K3"] += 1
@@ -442,14 +493,14 @@ def _launches_per_forward(cfg, batch=2):
         counts["K2"] += 1
         return x
 
-    vit_module.attention_packed, resblock.fused_residual_block = attn, fused
-    try:
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(vit_module, "attention_packed", attn)
+        mp.setattr(resblock, "fused_residual_block", fused)
+        k5 = _count_k5(mp.setattr)
         params = init_depth_pro(cfg, torch.Generator().manual_seed(0), "meta")
         x = torch.empty((batch, cfg.img_size, cfg.img_size, 3), device="meta")
         dp.forward(params, x, cfg, Precision.bf16(), compute_fov=False)
-    finally:
-        vit_module.attention_packed, resblock.fused_residual_block = real_attn, real_fused
-    return counts
+    return {**counts, **k5}
 
 
 @pytest.mark.parametrize("name,per_step", [("large", "PER_TRAIN_STEP"),
@@ -457,12 +508,15 @@ def _launches_per_forward(cfg, batch=2):
 def test_train_phase_launches_per_step(name, per_step):
     """A training step runs the forward without the FOV head once and its ViT
     blocks again in the per-block recompute: twice the forward's K1, its K2
-    once (the decoder's residual blocks are not recomputed)."""
+    once (the decoder's residual blocks are not recomputed), the forward's
+    K5 and each block's 3 again (the final norm lies outside the recomputed
+    blocks)."""
     from ml_depth_pro_video_tpu_torch.models.depth_pro import model_preset
 
     fwd = _launches_per_forward(model_preset(name))
     want = getattr(chip_smoke, per_step)
-    assert want == {"K1": 2 * fwd["K1"], "K2": fwd["K2"], "K3": 0, "K4": 0}
+    assert want == {"K1": 2 * fwd["K1"], "K2": fwd["K2"], "K3": 0, "K4": 0,
+                    "K5": fwd["K5"] + 3 * fwd["blocks"]}
     assert want["K1"] == 2 * 2 * model_preset(name).vit.depth and want["K2"] == 3
 
 
@@ -476,7 +530,8 @@ def test_export_cut_launches_per_forward():
     fwd = _launches_per_forward(cfg)
     fov = cfg.vit.depth  # the exported program derives f_px: the FOV ViT runs
     assert chip_smoke.EXPORT_CUT_PER_FORWARD == {"K1": fwd["K1"] + fov, "K2": fwd["K2"],
-                                                 "K3": fwd["K3"], "K4": 0}
+                                                 "K3": fwd["K3"], "K4": 0,
+                                                 "K5": fwd["K5"] + 3 * fov + 1}
 
 
 def test_grad_agreement_of_flattened_gradients():
@@ -670,7 +725,8 @@ def test_zero_halo_control_zeroes_one_level_only(monkeypatch):
 
 def _train_parallel_forward_shapes(monkeypatch, mode):
     """K1's shapes in one forward (FOV off) of the large preset on rank 0 of
-    a train_parallel mode, shapes only: meta tensors, the collectives stubbed
+    a train_parallel mode, and its K5 calls and ViT blocks (``_count_k5``),
+    shapes only: meta tensors, the collectives stubbed
     to return tensors of the shapes they would (the ranks' tp sums, the GPipe
     stage's receives and the banks' broadcasts)."""
     from ml_depth_pro_video_tpu_torch.ckpt.params import init_depth_pro
@@ -696,6 +752,7 @@ def _train_parallel_forward_shapes(monkeypatch, mode):
 
     monkeypatch.setattr(vit_module, "attention_packed", attn)
     monkeypatch.setattr(resblock, "fused_residual_block", lambda x, *a: x)
+    k5 = _count_k5(monkeypatch.setattr)
     cfg = dp.model_preset("large")
     kw = chip_smoke.TRAIN_PARALLEL_MODES[mode]
     params = init_depth_pro(cfg, torch.Generator().manual_seed(0), "meta")
@@ -715,7 +772,7 @@ def _train_parallel_forward_shapes(monkeypatch, mode):
     with torch.no_grad():
         canonical, _ = dp.forward(params, x, cfg, Precision.bf16(), **fwd)
     assert tuple(canonical.shape) == (rows, cfg.img_size, cfg.img_size, 1)
-    return shapes
+    return shapes, k5
 
 
 @pytest.mark.parametrize("mode", ["dp", "tp", "pp"])
@@ -727,9 +784,12 @@ def test_train_parallel_launches_per_rank_per_step(monkeypatch, mode):
     held by the kernels phase."""
     from ml_depth_pro_video_tpu_torch.models.depth_pro import model_preset
 
-    forward_shapes = _train_parallel_forward_shapes(monkeypatch, mode)
+    forward_shapes, k5 = _train_parallel_forward_shapes(monkeypatch, mode)
     want = chip_smoke.train_parallel_shapes(model_preset("large"), mode)
     assert want == {k: 2 * v for k, v in forward_shapes.items()}
+    # K5: the forward's, and each block's 3 again in the recompute
+    assert chip_smoke.train_parallel_k5(model_preset("large"), mode) == (k5["K5"]
+                                                                         + 3 * k5["blocks"])
     held = {s for s, _ in chip_smoke.K1_SHAPES}
     for key in want:
         assert tuple(map(int, key.split()[1].split("x"))) in held, key

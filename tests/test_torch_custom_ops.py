@@ -1,9 +1,11 @@
-"""The four kernels as ``torch.library`` custom operators (``ops/attention.py``,
-``ops/resblock.py``) on the CPU, where each operator's CPU kernel is its plain
-version: ``torch.library.opcheck`` (schema, autograd registration, the fake
-kernel against the real one, AOTAutograd tracing), gradients equal to the
-plain math's, a ViT block traced by Dynamo without a graph break, and no
-kernel for any device but the CPU and CUDA."""
+"""The five kernels as ``torch.library`` custom operators (``ops/attention.py``,
+``ops/resblock.py``, ``ops/norm.py``) on the CPU, where each operator's CPU
+kernel is its plain version: ``torch.library.opcheck`` (schema, autograd
+registration, the fake kernel against the real one, AOTAutograd tracing),
+gradients equal to the plain math's, a ViT block traced by Dynamo without a
+graph break, and no kernel for any device but the CPU and CUDA. K5
+(``add_layer_norm``) is checked in each of its three modes: add and
+LayerNorm, LayerNorm only, add only."""
 
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ import torch
 
 from ml_depth_pro_video_tpu_torch.models import vit as V
 from ml_depth_pro_video_tpu_torch.ops import attention as A
+from ml_depth_pro_video_tpu_torch.ops import norm as N
 from ml_depth_pro_video_tpu_torch.ops import resblock as R
 
 HEADS = 2
@@ -30,6 +33,13 @@ def _inputs(name: str, seed: int = 0) -> tuple:
                 torch.log(torch.from_numpy(rng.integers(1, 4, (2, 9)).astype(np.float32))), HEADS)
     if name == "attention_bhsd":
         return tuple(_t(rng, (2, HEADS, 9, 16)) for _ in range(3))
+    if name.startswith("add_layer_norm"):
+        d = 16
+        x, branch, ls, g, b = _t(rng, (2, 5, d)), _t(rng, (2, 5, d)), *(_t(rng, (d,)) for _ in "lgb")
+        add, norm = {"add_layer_norm": (True, True), "add_layer_norm.norm": (False, True),
+                     "add_layer_norm.add": (True, False)}[name]
+        return (x, branch if add else None, ls if add else None, g if norm else None,
+                b if norm else None, 1e-6)
     c = 8
     return (_t(rng, (1, 5, 6, c)), _t(rng, (3, 3, c, c), 0.1), _t(rng, (c,), 0.1),
             _t(rng, (3, 3, c, c), 0.1), _t(rng, (c,), 0.1))
@@ -42,6 +52,9 @@ OPS = {
                               lambda qkv, kb, h: A.attention_packed_reference(qkv, h, kb)),
     "attention_bhsd": (A.attention_bhsd_op, A.attention_reference),
     "resblock": (R.resblock_op, R.residual_block_reference),
+    "add_layer_norm": (N.add_layer_norm_op, N._placeheld),
+    "add_layer_norm.norm": (N.add_layer_norm_op, N._placeheld),
+    "add_layer_norm.add": (N.add_layer_norm_op, N._placeheld),
 }
 
 
@@ -60,12 +73,15 @@ def test_operator_gradients_equal_the_plain_math(name):
     for fn in (op, plain):
         args = tuple(a.requires_grad_(True) if isinstance(a, torch.Tensor) else a
                      for a in _inputs(name, seed=1))
-        out = fn(*args)
-        cot = torch.from_numpy(np.random.default_rng(2).standard_normal(out.shape)
-                               .astype(np.float32))
+        outs = fn(*args)
+        outs = [o for o in (outs if isinstance(outs, tuple) else (outs,)) if o.numel()]
+        cots = [torch.from_numpy(np.random.default_rng(2 + i).standard_normal(o.shape)
+                                 .astype(np.float32)) for i, o in enumerate(outs)]
         tensors = [a for a in args if isinstance(a, torch.Tensor)]
-        grads.append(torch.autograd.grad(out, tensors, cot))
-        assert torch.equal(out.detach(), plain(*args).detach())
+        grads.append(torch.autograd.grad(outs, tensors, cots))
+        wants = plain(*args)
+        wants = [w for w in (wants if isinstance(wants, tuple) else (wants,)) if w.numel()]
+        assert all(torch.equal(o.detach(), w.detach()) for o, w in zip(outs, wants))
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
@@ -107,7 +123,7 @@ def test_vit_block_compiles_without_a_graph_break(bias):
             if "depth_pro" in str(n.target)] == [f"depth_pro.{op}.default"]
 
 
-@pytest.mark.parametrize("name", sorted(OPS))
+@pytest.mark.parametrize("name", sorted({n.split(".")[0] for n in OPS}))
 def test_no_kernel_for_other_devices(name):
     """A CPU kernel (the plain version) and a CUDA kernel (the hand-written
     one); no default kernel, so the dispatcher raises for any other device,

@@ -25,6 +25,7 @@ from ml_depth_pro_video_tpu.models import vit as JV
 from ml_depth_pro_video_tpu_torch.ckpt import params as P
 from ml_depth_pro_video_tpu_torch.models import depth_pro as T
 from ml_depth_pro_video_tpu_torch.models import vit as TV
+from ml_depth_pro_video_tpu_torch.ops import norm as N
 
 RTOL, ATOL = 1e-3, 1e-4
 CFG = J.tiny_config()
@@ -215,3 +216,88 @@ def test_depth_pro_api_on_cpu(params):
             T.create_model_and_transforms(TCFG, device="cuda")
         else:
             raise RuntimeError("CUDA present")
+
+
+# ---------------------------------------------------------------------------
+# the block through ``ops.norm``'s add and LayerNorm calls (K5 on the card)
+# against the composition it replaced, bit for bit (on the CPU both take the
+# plain composition in the same order)
+
+
+def _plain_block(x, bp, cfg, key_bias=None, tp=None):
+    """The block as it was before K5: LayerNorm, attention, residual,
+    LayerNorm, MLP, residual, each its own PyTorch call."""
+    cdt = x.dtype
+    heads = cfg.num_heads if tp is None else cfg.num_heads // tp.size
+    h = N.layer_norm_reference(x, bp["ln1_g"], bp["ln1_b"], cfg.layer_norm_eps)
+    attn = TV.attention_packed(TV._dense(h, bp["qkv_w"], bp["qkv_b"]), heads, key_bias)
+    x = torch.addcmul(x, bp["ls1"].to(cdt), TV._dense_rows(attn, bp["proj_w"], bp["proj_b"], tp))
+    h = N.layer_norm_reference(x, bp["ln2_g"], bp["ln2_b"], cfg.layer_norm_eps)
+    h = torch.nn.functional.gelu(TV._dense(h, bp["fc1_w"], bp["fc1_b"]))
+    return torch.addcmul(x, bp["ls2"].to(cdt), TV._dense_rows(h, bp["fc2_w"], bp["fc2_b"], tp))
+
+
+BLOCK_CFG = TV.ViTConfig(img_size=64, patch_size=16, embed_dim=32, depth=12, num_heads=2,
+                         mlp_ratio=2)
+
+
+@pytest.fixture(scope="module")
+def block_params():
+    """ViT params with every leaf redrawn: N(0, its std, or 0.1 for a constant
+    leaf such as LayerScale or a bias) added to it."""
+    gen = torch.Generator().manual_seed(1)
+
+    def redraw(t):
+        std = float(t.std()) if t.numel() > 1 else 0.0
+        return t + torch.randn(t.shape, generator=gen) * (std if std > 0 else 0.1)
+
+    return P.map_tree(redraw, P.init_vit(BLOCK_CFG, torch.Generator().manual_seed(0), "cpu"))
+
+
+def _vit_both_ways(params, x, monkeypatch, **kw):
+    got = TV.vit_apply(params, x, BLOCK_CFG, capture_blocks=(5, 11), merge_block=2, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(TV, "_block", _plain_block)
+        want = TV.vit_apply(params, x, BLOCK_CFG, capture_blocks=(5, 11), merge_block=2, **kw)
+    return got, want
+
+
+@pytest.mark.parametrize("ratio", [0.0, 0.5])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_fused_block_equals_the_plain_composition(block_params, monkeypatch, precision, ratio):
+    """The tokens and the captures at blocks 5 and 11, at the exact tier and
+    with a ToMe merge after block 2."""
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 64, 64, 3))
+                         .astype(np.float32))
+    prec = T.Precision.fp32() if precision == "fp32" else T.Precision.bf16()
+    (tok, caps), (want_tok, want_caps) = _vit_both_ways(block_params, x, monkeypatch,
+                                                        precision=prec, merge_ratio=ratio)
+    assert tok.dtype == prec.compute_dtype and len(caps) == len(want_caps) == 2
+    assert torch.equal(tok, want_tok)
+    for c, w in zip(caps, want_caps):
+        assert torch.equal(c, w)
+
+
+@pytest.mark.parametrize("ratio", [0.0, 0.5])
+def test_fused_block_remat_gradients_equal_the_plain_composition(block_params, monkeypatch,
+                                                                 ratio):
+    """Under ``remat`` the gradients of every parameter and of the input
+    equal the plain composition's under its own per-block recompute."""
+    x0 = torch.from_numpy(np.random.default_rng(7).standard_normal((2, 64, 64, 3))
+                          .astype(np.float32))
+    grads = []
+    for swap in (False, True):
+        params = P.map_tree(lambda t: t.detach().clone().requires_grad_(True), block_params)
+        x = x0.clone().requires_grad_(True)
+        with monkeypatch.context() as m:
+            if swap:
+                m.setattr(TV, "_block", _plain_block)
+            tok, caps = TV.vit_apply(params, x, BLOCK_CFG, capture_blocks=(5, 11),
+                                     merge_ratio=ratio, merge_block=2, remat=True)
+            rng = np.random.default_rng(8)
+            loss = sum((t * torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+                       .sum() for t in (tok, *caps))
+            leaves = [x] + jax.tree.leaves(params)
+            grads.append(torch.autograd.grad(loss, leaves))
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)

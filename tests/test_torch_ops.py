@@ -437,9 +437,9 @@ def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
     assert lib.read_text() == "built"
     calls = log.read_text().splitlines()
     compiles = [c for c in calls if " -c " in f" {c} "]
-    assert len(compiles) == len(loader.sources()) == 4  # headers are not compiled
+    assert len(compiles) == len(loader.sources()) == 5  # headers are not compiled
     assert sorted(c.split()[-1] for c in compiles) == sorted(map(str, loader.sources()))
-    assert len(calls) == 5 and "-shared" in calls[-1].split()
+    assert len(calls) == 6 and "-shared" in calls[-1].split()
     assert sorted(p.name for p in lib.parent.iterdir()) == [loader.LIBRARY_NAME]
 
 
@@ -476,8 +476,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
     path = loader.library_path()
     assert path.parent.parent == loader.BUILD_ROOT and path.name == loader.LIBRARY_NAME
-    assert [p.name for p in loader.sources()] == ["attention_packed.cu", "attention_wgmma.cu",
-                                                  "resblock.cu", "resblock_wgmma.cu"]
+    assert [p.name for p in loader.sources()] == ["add_layer_norm.cu", "attention_packed.cu",
+                                                  "attention_wgmma.cu", "resblock.cu",
+                                                  "resblock_wgmma.cu"]
     monkeypatch.setattr(loader, "NVCC_FLAGS", loader.NVCC_FLAGS + ("-lineinfo",))
     assert loader.library_path() != path
 
@@ -490,7 +491,7 @@ def test_library_path_is_keyed_by_headers(monkeypatch, tmp_path):
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(loader, "CSRC_DIR", tmp_path)
     path = loader.library_path()
-    assert [p.suffix for p in loader.sources()] == [".cu"] * 4
+    assert [p.suffix for p in loader.sources()] == [".cu"] * 5
     header = tmp_path / "attention.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert loader.library_path() != path
