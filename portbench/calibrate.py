@@ -5,12 +5,13 @@
 
 For each seed it runs the cell once at its own load for a short window, as
 ``portbench.run`` does, and prints (and appends to ``--out``) one JSON line
-with every number compared and the end-to-end metrics. ``--control-seeds``
-run the control instead: the program with its int8 path switched on
-(``quantize=True``: the ViTs' block matmul weights as int8 codes with
-per-channel scales), the next precision below the configuration's bf16. The
-limits in ``portbench/limits/<cell>.json`` are set above the program's
-largest reading and below the control's smallest. The benchmark's own runs
+with every number its family compares and the end-to-end metrics.
+``--control-seeds`` run the control instead: the program built by the
+configuration's family with ``quantize=True``, the family's next precision
+below the configuration's (for Depth Pro, the ViTs' block matmul weights as
+int8 codes with per-channel scales, below bf16). The limits in
+``portbench/limits/<cell>.json`` are set above the program's largest reading
+and below the control's smallest. The benchmark's own runs
 never run the control.
 """
 
@@ -21,19 +22,18 @@ import json
 import time
 
 from portbench import run
-from portbench.correct import NAMES
+from portbench.correct import names_of
 from portbench.lifecycle import Teardown
-from portbench.reference.depth_pro import arch_of
-
-NO_LIMITS = {name: float("inf") for name in NAMES}
 
 
 def reading(man: dict, name: str, seed: int, seconds: float, control: bool) -> dict:
     cell, config, traffic = run.cell_files(man, name)
-    ctx = run.Ctx(name, cell, config, traffic, arch_of(config), seed, seconds, False,
+    family = run.family_of(config)
+    ctx = run.Ctx(name, cell, config, traffic, family.arch_of(config), seed, seconds, False,
                   int(cell["chips"]), "cuda", Teardown(), time.perf_counter(), control)
+    no_limits = {n: float("inf") for n in names_of(family.YIELDS)}
     try:
-        result, each = run.run_cell(ctx, man, limits=NO_LIMITS)
+        result, each = run.run_cell(ctx, man, limits=no_limits)
     finally:
         report = ctx.teardown.run()
     return {"workload": name, "seed": seed, "control": control,

@@ -1,4 +1,5 @@
-"""The one place the benchmark touches the program under test.
+"""The one place the Depth Pro family touches the program under test
+(``portbench/families/depth_pro.py`` hands it to the harness).
 
 It takes from ``ml_depth_pro_video_tpu_torch`` only the system under test
 (the streaming runner) and its counters (kernel launches). The runner builds its model

@@ -3,7 +3,9 @@
     python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 from the root of a checkout, on a machine with the cell's cards. The cell
-comes from ``BENCHMARK.json``; its configuration file, its traffic mix
+comes from ``BENCHMARK.json``; its configuration file, the configuration's
+model family (``portbench/families/<family>.py``, named by the file's
+``"family"`` key, ``depth_pro`` where it has none), its traffic mix
 (``portbench/traffic/<traffic>.json``, whose ``kind`` names the generator
 ``portbench/traffic/<kind>.py``) and its limits
 (``portbench/limits/<cell>.json``) are found by name, and so is each per-layer
@@ -11,8 +13,8 @@ metric's reader (``portbench/metrics/<metric>.py``).
 
 The run makes its weights and inputs from ``--seed``, sets up and warms the
 program, measures for ``--seconds``, checks a seeded sample of what the timed
-path produced against the plain reference, tears down everything it started
-(``portbench/lifecycle.py``), and prints as the last line of standard output
+path produced against the family's plain reference, tears down everything it
+started (``portbench/lifecycle.py``), and prints as the last line of standard output
 one JSON object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the
 cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones read from
 a profiled slice of the window), ``device``, with ``--trace 1`` ``breakdown``,
@@ -36,6 +38,7 @@ import dataclasses  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 import sys  # noqa: E402
 import traceback  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -43,6 +46,7 @@ from pathlib import Path  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 PROGRAM = "ml_depth_pro_video_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "ml_depth_pro_video_tpu")
+DEFAULT_FAMILY = "depth_pro"  # the family of a configuration file without a "family" key
 
 
 def cache_env(root: Path = ROOT) -> None:
@@ -82,6 +86,7 @@ class Ctx:
     teardown: object
     t_start: float
     control: bool = False
+    family: object = None  # the configuration's family module, set by ``run_cell``
 
     def log(self, msg: str) -> None:
         log(f"[{self.name}] {msg}")
@@ -96,8 +101,8 @@ class Outcome:
     attempted: int
     failed: int
     memory_peak: int      # bytes, on the fullest card
-    samples: list         # (frame id, answer) of the seeded sample
-    frames: dict          # frame id -> uint8 (H, W, 3): the reference's inputs
+    samples: list         # (sample key, answer) of the seeded sample
+    inputs: dict          # sample key -> the reference's input, in the family's form
     slice: object = None  # trace.Slice of the profiled part of the window
 
 
@@ -120,14 +125,46 @@ def free(device: str) -> None:
 
 
 def load_module(path: Path, name: str):
+    """The module at ``path``, run anew as ``sys.modules[name]`` (where a
+    dataclass it defines looks its module up)."""
     spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
     return mod
 
 
 def manifest(root: Path = ROOT) -> dict:
     return json.loads((root / "BENCHMARK.json").read_text())
+
+
+def family_name(config: dict) -> str:
+    """The model family a configuration file names (``DEFAULT_FAMILY`` if none)."""
+    name = config.get("family", DEFAULT_FAMILY)
+    if not isinstance(name, str) or not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]{0,63}", name):
+        raise ValueError(f"a configuration's family is a module name, not {name!r}")
+    return name
+
+
+def family_of(config: dict, root: Path = ROOT):
+    """The configuration's family module, ``portbench/families/<family>.py``.
+
+    It supplies ``arch_of(config)``; ``make_weights(arch, seed, device)``;
+    the program adapter ``model_config(config)``, ``build_runner(config,
+    weights, batch, device, quantize)`` (``quantize``: the control, the
+    family's next precision below the configuration's) and ``launches()``;
+    ``reference_answers(inputs, weights_fn, arch, dtype, device)``, which
+    gives each sample key's reference answer in the configuration's ``dtype``
+    and in fp32; ``sample(out)``, what the sample keeps of one answer the
+    runner yields; ``arrays(answer)``, the arrays an answer or a reference
+    answer yields for comparison; and ``YIELDS``, their names
+    (``portbench/correct.py``).
+    """
+    name = family_name(config)
+    path = root / "portbench" / "families" / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"the configuration's family {name!r} has no module {path}")
+    return load_module(path, f"portbench_family_{name}")
 
 
 def cell_files(man: dict, name: str, root: Path = ROOT) -> tuple[dict, dict, dict]:
@@ -162,20 +199,20 @@ def run_cell(ctx: Ctx, man: dict, root: Path = ROOT,
     import torch
 
     from . import correct
-    from .reference.depth_pro import arch_of
-    from .weights import make_weights
 
+    family = ctx.family = family_of(ctx.config, root)
     kind = load_module(root / "portbench" / "traffic" / f"{ctx.traffic['kind']}.py",
                        f"portbench_traffic_{ctx.traffic['kind']}")
     out: Outcome = kind.run(ctx)
     limits = limits or correct.load_limits(root, ctx.name)
-    arch = arch_of(ctx.config)
+    arch = ctx.arch
     dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[ctx.config["model"]["precision"]]
     t0 = time.perf_counter()
-    refs = correct.reference_answers(out.frames, lambda: make_weights(arch, ctx.seed, ctx.device),
-                                     arch, dtype, ctx.device)
-    ok, compared, each = correct.judge(out.samples, refs, limits)
-    ctx.log(f"reference: {len(out.frames)} frames in {time.perf_counter() - t0:.3f} s for "
+    refs = family.reference_answers(out.inputs,
+                                    lambda: family.make_weights(arch, ctx.seed, ctx.device),
+                                    arch, dtype, ctx.device)
+    ok, compared, each = correct.judge(out.samples, refs, limits, family)
+    ctx.log(f"reference: {len(out.inputs)} inputs in {time.perf_counter() - t0:.3f} s for "
             f"{len(out.samples)} sampled answers; each answer's gaps {json.dumps(each)}")
 
     e2e_metrics = e2e_of(man, ctx.name)
@@ -267,9 +304,9 @@ def main(argv=None) -> int:
         return 2
 
     from .lifecycle import Teardown
-    from .reference.depth_pro import arch_of
 
-    ctx = Ctx(args.workload, cell, config, traffic, arch_of(config), args.seed, args.seconds,
+    arch = family_of(config).arch_of(config)
+    ctx = Ctx(args.workload, cell, config, traffic, arch, args.seed, args.seconds,
               bool(args.trace), chips, "cuda", Teardown(), T_START)
     result, report = execute(ctx, man)
     found = forbidden_modules()

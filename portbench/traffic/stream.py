@@ -1,4 +1,9 @@
-"""Closed stream of frames held in memory through ``DepthVideoRunner.depth_stream``.
+"""Closed stream of frames held in memory through a runner's ``depth_stream``.
+
+The configuration's family (``ctx.family``) makes the weights and builds the
+runner, whose ``depth_stream`` yields one answer a frame, and counts the
+program's kernel launches; a sample key is the frame's id in the pool, and
+its input the frame.
 
 Parameters (the mix's data file): ``batch``, ``height``, ``width``, ``pool``
 (distinct seeded frames, cycled), ``warmup_batches`` (batches of the stream
@@ -18,13 +23,10 @@ from __future__ import annotations
 import threading
 import time
 
-import numpy as np
-
-from portbench import program, trace
+from portbench import trace
 from portbench.correct import Sampler
 from portbench.frames import make_frames
 from portbench.run import Outcome, free, peak_bytes
-from portbench.weights import make_weights
 
 
 def measure(ctx, runner, pool, batch: int) -> dict:
@@ -49,15 +51,14 @@ def measure(ctx, runner, pool, batch: int) -> dict:
         done += 1
     sampler = Sampler(tr["sample"], ctx.seed)
     counted = 0
-    before = program.launches()
+    before = ctx.family.launches()
     capture = None
     t0 = time.perf_counter()
     deadline = t0 + ctx.seconds
     t_end = None
     for out in stream:
         counted += 1
-        sampler.offer(done % len(pool), lambda: {"depth": np.array(out["depth"]),
-                                                 "focallength_px": out["focallength_px"]})
+        sampler.offer(done % len(pool), lambda: ctx.family.sample(out))
         done += 1
         if counted % batch:
             continue
@@ -70,7 +71,7 @@ def measure(ctx, runner, pool, batch: int) -> dict:
         if now >= deadline:
             t_end = now
             break
-    after = program.launches()
+    after = ctx.family.launches()
     if capture is not None:
         capture.stop()
     stop.set()
@@ -92,8 +93,9 @@ def run(ctx) -> Outcome:
     tr = ctx.traffic
     batch = tr["batch"]
     pool = make_frames(tr["pool"], tr["height"], tr["width"], ctx.seed, ctx.device)
-    weights = make_weights(ctx.arch, ctx.seed, ctx.device)
-    runner = program.build_runner(ctx.config, weights, batch, ctx.device, quantize=ctx.control)
+    weights = ctx.family.make_weights(ctx.arch, ctx.seed, ctx.device)
+    runner = ctx.family.build_runner(ctx.config, weights, batch, ctx.device,
+                                     quantize=ctx.control)
     del weights
     got = measure(ctx, runner, pool, batch)
     memory_peak = peak_bytes(ctx.device)
@@ -101,5 +103,5 @@ def run(ctx) -> Outcome:
     free(ctx.device)
     return Outcome(e2e={"frames_per_s": got["frames"] / got["seconds"]}, window_start=got["t0"],
                    attempted=got["frames"], failed=0, memory_peak=memory_peak,
-                   samples=got["samples"], frames={i: pool[i] for i, _ in got["samples"]},
+                   samples=got["samples"], inputs={i: pool[i] for i, _ in got["samples"]},
                    slice=got["slice"])
