@@ -33,24 +33,32 @@ def _quantize(w: torch.Tensor) -> dict:
     return {"q": q, "s": scale}
 
 
+def _map_vit(vit_params: dict, fn) -> dict:
+    """Apply ``fn`` to one ViT's block matmul weight leaves."""
+    blocks = dict(vit_params["blocks"])
+    for key in _QUANT_KEYS:
+        blocks[key] = fn(blocks[key])
+    return {**vit_params, "blocks": blocks}
+
+
+def quantize_vit(vit_params: dict) -> dict:
+    """One ViT's tree with its block matmul weights int8-quantized (Video
+    Depth Anything's control, ``models/video_depth_anything.py``)."""
+    return _map_vit(vit_params, _quantize)
+
+
 def _map_vit_matmuls(params: dict, fn) -> dict:
     """Apply ``fn`` to every ViT block matmul weight leaf (encoder
     patch/image ViTs and the FOV ViT), leaving the rest untouched."""
 
-    def quant_vit(vit_params: dict) -> dict:
-        blocks = dict(vit_params["blocks"])
-        for key in _QUANT_KEYS:
-            blocks[key] = fn(blocks[key])
-        return {**vit_params, "blocks": blocks}
-
     out = dict(params)
     enc = dict(params["encoder"])
-    enc["patch_vit"] = quant_vit(enc["patch_vit"])
-    enc["image_vit"] = quant_vit(enc["image_vit"])
+    enc["patch_vit"] = _map_vit(enc["patch_vit"], fn)
+    enc["image_vit"] = _map_vit(enc["image_vit"], fn)
     out["encoder"] = enc
     if "fov" in params:
         fov = dict(params["fov"])
-        fov["vit"] = quant_vit(fov["vit"])
+        fov["vit"] = _map_vit(fov["vit"], fn)
         out["fov"] = fov
     return out
 

@@ -10,6 +10,11 @@ depth video with a stable color range, optional temporal smoothing and
 (``video/pack.py``). ``--device`` picks the card (default ``cuda``), and
 ``--exported`` serves the forwards of the maps from a
 ``depth-pro-export-torch`` artifact (the runner's ``exported_path``).
+``--model vda_large`` (or ``vda_tiny``) runs Video Depth Anything
+(``models/video_depth_anything.py``) instead: the frames in order through
+32-frame windows, stitched into one consistent stream, each map the frame's
+relative inverse depth (near is bright; the ``.npz`` holds
+``inverse_depth``), on one process.
 
 Across ranks (one process per card, ``parallel/multihost.py``): run the same
 command on every rank, under ``torchrun --nproc_per_node N`` or with
@@ -30,6 +35,7 @@ import time
 import numpy as np
 
 from ..models.depth_pro import MODEL_PRESETS, SPEED_PRESETS, model_preset
+from ..models.video_depth_anything import VDA_PRESETS, vda_preset
 from ..parallel import multihost
 from ..parallel.mesh import batch_sharding, make_mesh
 from ..video.runner import DepthVideoRunner
@@ -117,6 +123,13 @@ def generate_depth_maps(
                          "runs eagerly")
     if pod and packed_fetch:
         raise ValueError("--packed_fetch is single-host only (ranks fetch only their own rows)")
+    if model in VDA_PRESETS and (pod or exported_path is not None or packed_fetch
+                                 or speed != "exact"):
+        raise ValueError(f"--model {model} runs its windows on one process, eagerly, at its "
+                         "exact path, without the packed fetch")
+    if runner is None and model in VDA_PRESETS:
+        runner = DepthVideoRunner(cfg=vda_preset(model), precision=_precision(half_precision),
+                                  downscale_factor=downscale_factor, device=device)
     if runner is None:
         mesh = None
         if pod:
@@ -140,12 +153,15 @@ def generate_depth_maps(
         stem = os.path.splitext(os.path.basename(result["key"]))[0]
         try:
             out = os.path.join(output_dir, f"{stem}_depth.png")
-            save_depth_image(out, colorize_depth(result["depth"], colormap))
+            if "inverse_depth" in result:  # relative: no metric depth, no f_px
+                save_depth_image(out, colorize_depth(result["inverse_depth"], colormap))
+                arrays = {"inverse_depth": result["inverse_depth"]}
+            else:
+                save_depth_image(out, colorize_depth(result["depth"], colormap))
+                arrays = {"depth": result["depth"], "focallength_px": result["focallength_px"]}
             written.append(out)
             if save_npz:
-                np.savez_compressed(os.path.join(output_dir, f"{stem}_depth.npz"),
-                                    depth=result["depth"],
-                                    focallength_px=result["focallength_px"])
+                np.savez_compressed(os.path.join(output_dir, f"{stem}_depth.npz"), **arrays)
             print(f"[{i+1}/{n_expect}] {stem} ({(time.time()-t0)/(i+1):.2f}s/frame avg)")
         except Exception as exc:  # noqa: BLE001 - reported, the stream goes on
             print(f"Error processing {stem}: {exc}")
@@ -218,6 +234,9 @@ def generate_depth_video(
     (``video/temporal.py``). Returns the number of frames written."""
     from ..video.writer import VideoSink
 
+    if model in VDA_PRESETS:
+        raise ValueError(f"--model {model} writes maps (PNG and npz); --video_out runs Depth "
+                         "Pro's presets")
     if colormap in ("gray16", "grayscale16"):
         raise ValueError("16-bit grayscale is for PNG output; video frames are 8-bit "
                          "(use --colormap gray)")
@@ -302,8 +321,10 @@ def main(argv=None) -> None:
     ap.add_argument("--packed_fetch", action="store_true",
                     help="fetch depth as device-quantized log-u16 (half the device->host "
                          "bytes; <=1.5e-4 relative error, video/pack.py)")
-    ap.add_argument("--model", choices=list(MODEL_PRESETS), default="large",
-                    help="model family member (base/small need a trained checkpoint)")
+    ap.add_argument("--model", choices=list(MODEL_PRESETS) + list(VDA_PRESETS), default="large",
+                    help="model family member (base/small need a trained checkpoint); "
+                         "vda_large: Video Depth Anything, relative inverse depth in stitched "
+                         "32-frame windows")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     multihost.add_multihost_args(ap)
     args = ap.parse_args(argv)

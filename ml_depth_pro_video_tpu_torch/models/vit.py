@@ -1,6 +1,7 @@
 """DINOv2-style ViT backbone (twin of ``ml_depth_pro_video_tpu/models/vit.py``).
 
-Patch embed 16x16/s16 as patchify + matmul, cls token, learned pos embed,
+Patch embed PxP/sP as patchify + matmul (P = 16 in Depth Pro, 14 in Video
+Depth Anything), cls token, learned pos embed,
 pre-norm blocks with LayerScale and exact GELU, eps=1e-6 LayerNorms, and a
 final LayerNorm. Block params are stacked along a leading depth axis; a
 Python loop over that axis replaces the JAX package's ``lax.scan``, and
@@ -23,13 +24,20 @@ passed down ``vit_apply`` -> ``_run_blocks`` -> ``_block``) a block runs on
 the rank's shard: the qkv and fc1 columns and the proj and fc2 rows, with
 ``num_heads // tp`` heads, *copy to tp* before the column GEMMs and *reduce
 from tp* after the row GEMMs, whose bias is added once, after the sum.
+
+A ViT may run on a grid that is not square (``GridViTConfig.img_hw``): the tree
+then holds its position table at that grid, interpolated once from the
+pretrained square table by ``interpolate_pos_embed`` (DINOv2's rule), and
+the blocks are those of every other ViT.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,6 +48,7 @@ from ..ckpt.quantize import materialize_weight
 from ..core.precision import Precision
 from ..ops.attention import attention_packed
 from ..ops.norm import add_layer_norm, layer_norm
+from ..ops.resize import _cubic_filter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,8 +68,25 @@ class ViTConfig:
         return self.img_size // self.patch_size
 
     @property
+    def grid_hw(self) -> tuple[int, int]:
+        return self.grid_size, self.grid_size
+
+    @property
     def num_tokens(self) -> int:
-        return self.grid_size * self.grid_size + 1
+        gh, gw = self.grid_hw
+        return gh * gw + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class GridViTConfig(ViTConfig):
+    """A ViT on (H, W) images that need not be square: ``img_size`` stays
+    the pretrained table's square size, ``img_hw`` is the input's."""
+
+    img_hw: tuple = (384, 384)
+
+    @property
+    def grid_hw(self) -> tuple[int, int]:
+        return self.img_hw[0] // self.patch_size, self.img_hw[1] // self.patch_size
 
 
 VIT_CONFIG_DICT = {
@@ -74,11 +100,46 @@ VIT_CONFIG_DICT = {
 
 
 def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
-    """(B, S, S, C) -> (B, G*G, patch*patch*C), (kh, kw, c)-ordered."""
+    """(B, H, W, C) -> (B, (H/patch)*(W/patch), patch*patch*C), (kh, kw, c)-ordered."""
     b, h, w, c = x.shape
     gh, gw = h // patch, w // patch
     x = x.reshape(b, gh, patch, gw, patch, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, gh * gw, patch * patch * c)
+
+
+def _pos_matrix(in_size: int, out_size: int, scale: float) -> np.ndarray:
+    """(out, in) fp64 matrix of torch's bicubic resize (a = -0.75, no
+    antialias, taps clamped at the edges) with its scale factor given: output
+    i samples input (i + 0.5) / scale - 0.5."""
+    center = (np.arange(out_size, dtype=np.float64) + 0.5) / scale - 0.5
+    taps = np.floor(center).astype(np.int64)[:, None] + np.arange(-1, 3)[None, :]
+    w = _cubic_filter(taps - center[:, None])
+    mat = np.zeros((out_size, in_size), np.float64)
+    np.add.at(mat, (np.repeat(np.arange(out_size), 4), np.clip(taps, 0, in_size - 1).ravel()),
+              w.ravel())
+    return mat
+
+
+def interpolate_pos_embed(pos: torch.Tensor, grid_hw: tuple[int, int],
+                          offset: float = 0.1) -> torch.Tensor:
+    """DINOv2's ``interpolate_pos_encoding``: the (1, 1+G*G, D) pretrained
+    table with its patch rows resampled to the (gh, gw) grid by a bicubic
+    resize whose scale factors are ``((gh + offset) / G, (gw + offset) / G)``
+    (given, not the sizes' ratio: the offset shifts every sample). The cls
+    row is kept. Computed in fp64, returned in ``pos``'s dtype."""
+    n = pos.shape[1] - 1
+    g = int(round(math.sqrt(n)))
+    gh, gw = grid_hw
+    if g * g != n:
+        raise ValueError(f"the pretrained position table must be square, got {n} patch rows")
+    if (gh, gw) == (g, g):
+        return pos
+    dev = pos.device
+    mh = torch.as_tensor(_pos_matrix(g, gh, (gh + offset) / g), device=dev)
+    mw = torch.as_tensor(_pos_matrix(g, gw, (gw + offset) / g), device=dev)
+    grid = pos[0, 1:].double().reshape(g, g, -1)
+    out = torch.einsum("ih,hwd,jw->ijd", mh, grid, mw).reshape(1, gh * gw, -1)
+    return torch.cat([pos[:, :1], out.to(pos.dtype)], dim=1)
 
 
 def _dense(x: torch.Tensor, w, b: torch.Tensor) -> torch.Tensor:
@@ -232,9 +293,9 @@ def vit_apply(params: dict, x: torch.Tensor, cfg: ViTConfig,
               merge_ratio: float = 0.0,
               merge_block: int = 2,
               remat: bool = False, tp=None) -> tuple[torch.Tensor, list[torch.Tensor]]:
-    """x: (B, img, img, 3) normalized NHWC. Returns (final tokens after the
-    last LayerNorm, [outputs of the blocks in ``capture_blocks``, in sorted
-    order]), each (B, 1+G*G, D).
+    """x: (B, H, W, 3) normalized NHWC (img x img, or a ``GridViTConfig``'s ``img_hw``).
+    Returns (final tokens after the last LayerNorm, [outputs of the blocks
+    in ``capture_blocks``, in sorted order]), each (B, 1+gh*gw, D).
 
     ``merge_ratio > 0`` turns on the ToMe speed tier: after ``merge_block``
     exact blocks, ``int(ratio * n_patch)`` tokens are merged away once and

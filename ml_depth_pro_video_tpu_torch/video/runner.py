@@ -29,6 +29,23 @@ the others (``parallel/latency.py``). ``depth_stream_multihost`` is the pod
 stream: each rank decodes and yields only its own rows. Every rank calls
 the same method with the same items in the same order.
 
+With a ``models/video_depth_anything.py::VDAConfig`` as ``cfg`` the runner
+runs Video Depth Anything instead: ``depth_stream`` runs windows of
+``cfg.window`` frames (32), the first ``cfg.overlap`` of each the window
+before's inputs at ``cfg.keyframes``, kept on the device, so that each
+window after the first uploads only its new frames (22), in one copy. It
+yields one answer a frame, in order: ``{"key", "inverse_depth" (H, W) fp32
+relative inverse depth at the frame's size, "window", "position" (the
+window and the position in it where the frame was new), "image"}``. With
+``stitch=True`` (upstream's ``infer_video_depth``) each window is aligned to
+the stitched stream by a scale and shift and blended into its overlap on the
+device (``stitch_window``), and a window's last 8 frames wait for the next
+window's blend; with ``stitch=False`` each frame is its window's raw output.
+The loader thread, staging, up to ``pipeline_depth`` windows in flight, the
+pinned fetch and the spans below are the same as for Depth Pro's batches
+(a window is a span's ``#seq``); retries, meshes, artifacts and the
+post-ops are Depth Pro's only.
+
 While a ``torch.profiler`` runs, ``depth_stream`` marks what its thread is
 doing with five spans (``utils/profiling.py::span``) that tile its loop:
 ``depth_stream.wait_frames`` (blocked on the loader's queue), ``.stage``
@@ -54,10 +71,12 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from ..ckpt.convert_vda import build_vda_params
 from ..ckpt.export import load_exported, user_inputs
-from ..ckpt.quantize import quantize_vit_weights
+from ..ckpt.quantize import quantize_vit, quantize_vit_weights
 from ..core.precision import disable_tf32, resolve_device, resolve_precision
 from ..io.image import load_stream_item
+from ..models import video_depth_anything as vda
 from ..models.depth_pro import (
     DEFAULT_MONODEPTH_CONFIG,
     DepthProConfig,
@@ -137,8 +156,19 @@ class _Flight:
     seq: int              # the batch's number in its stream
 
 
+@dataclasses.dataclass
+class _WindowFlight:
+    """One dispatched Video Depth Anything window, from dispatch to collect."""
+
+    seq: int              # the window's number in its stream
+    meta: list            # (key, image, window, position) of each fetched row
+    fetch: tuple          # (host tensors, CUDA event or None)
+
+
 class DepthVideoRunner:
     """Streaming batched depth inference with host/device overlap."""
+
+    _vda = None  # the Video Depth Anything model of a runner built on a VDAConfig
 
     def __init__(
         self,
@@ -160,7 +190,17 @@ class DepthVideoRunner:
         fetch_pack: str = "none",
         decode_pool: str = "auto",
         device="cuda",
+        params: dict | None = None,
+        stitch: bool = True,
     ):
+        """``params``: the model's param tree (default: the checkpoint's, or
+        random weights from ``rng_seed``). ``stitch``: Video Depth
+        Anything's stitching of windows (its ``cfg`` only)."""
+        is_vda = isinstance(cfg, vda.VDAConfig)
+        if is_vda and (mesh is not None or exported_path is not None or speed != "exact"
+                       or temporal_smooth or fetch_pack != "none"):
+            raise ValueError("Video Depth Anything runs on one device, eagerly, at its exact "
+                             "path, without the temporal smoother or the packed fetch")
         if parallel not in ("dp", "latency"):
             raise ValueError(f"parallel must be 'dp' or 'latency', got {parallel!r}")
         if fetch_pack not in ("none", "u16"):
@@ -214,7 +254,17 @@ class DepthVideoRunner:
         self.temporal_smooth = float(temporal_smooth)
         self.fetch_pack = fetch_pack
         self._phase = _Phase()
-        params = build_params(cfg, self.device, rng_seed)
+        if is_vda:
+            params = build_vda_params(cfg, self.device, rng_seed) if params is None else params
+            if quantize:
+                params = {**params, "vit": quantize_vit(params["vit"])}
+            self._vda = vda.VideoDepthAnything(params, cfg)
+            self.params = self._vda.params
+            self.stitch = bool(stitch)
+            self.model = self._program = self._dp = self._latency = None
+            return
+        if params is None:
+            params = build_params(cfg, self.device, rng_seed)
         if quantize:
             params = quantize_vit_weights(params)
         self.model = DepthProModel(params, cfg).eval()
@@ -333,13 +383,12 @@ class DepthVideoRunner:
     def _load_one(self, item):
         return load_stream_item(item, self.downscale_factor)
 
-    def depth_stream(self, items: Iterable) -> Iterator[dict]:
-        """Yield {"key", "depth", "focallength_px", "image"} per frame, in
-        input order. Frames are grouped into device batches of
-        ``batch_size``; a short tail batch is padded by repeating its last
-        frame. Frames without a focal length get it from the FOV head. With
-        ``temporal_smooth > 0`` each stream starts a fresh EMA state."""
-        q: queue.Queue = queue.Queue(maxsize=self.prefetch * max(self.batch_size, 1))
+    def _start_loader(self, items: Iterable, capacity: int):
+        """Start the loader thread: it decodes ``items`` in order with a
+        bounded pool and queues each frame, at most ``capacity`` ahead.
+        Returns (the queue, the sentinel it queues last, the event that
+        stops it, the thread)."""
+        q: queue.Queue = queue.Queue(maxsize=capacity)
         sentinel = object()
         stop = threading.Event()
 
@@ -406,6 +455,21 @@ class DepthVideoRunner:
 
         thread = threading.Thread(target=loader, daemon=True)
         thread.start()
+        return q, sentinel, stop, thread
+
+    def depth_stream(self, items: Iterable) -> Iterator[dict]:
+        """Yield {"key", "depth", "focallength_px", "image"} per frame, in
+        input order. Frames are grouped into device batches of
+        ``batch_size``; a short tail batch is padded by repeating its last
+        frame. Frames without a focal length get it from the FOV head. With
+        ``temporal_smooth > 0`` each stream starts a fresh EMA state. A
+        Video Depth Anything runner streams windows instead (the module's
+        docstring)."""
+        if self._vda is not None:
+            yield from self._window_stream(items)
+            return
+        q, sentinel, stop, thread = self._start_loader(
+            items, self.prefetch * max(self.batch_size, 1))
 
         pending: list = []
         in_flight: deque = deque()  # _Flight, oldest first
@@ -522,6 +586,108 @@ class DepthVideoRunner:
                         yield from collect(in_flight.popleft())  # ... while N is fetched
             if pending:
                 in_flight.append(dispatch())
+            while in_flight:
+                yield from collect(in_flight.popleft())
+        finally:
+            self._phase.end()
+            stop.set()
+            thread.join(timeout=10.0)
+
+    def _window_stream(self, items: Iterable) -> Iterator[dict]:
+        """``depth_stream`` of a Video Depth Anything runner: windows of
+        ``cfg.window`` frames over the stream, as upstream's
+        ``infer_video_depth`` cuts it (the windows start every ``cfg.step``
+        frames while they start inside the stream; a window past its end is
+        filled with copies of the last frame)."""
+        cfg, model = self.cfg, self._vda
+        keyframes = list(cfg.keyframes)
+        il = cfg.interp_len
+        q, sentinel, stop, thread = self._start_loader(items, self.prefetch * cfg.window)
+        in_flight: deque = deque()
+        pending: list = []      # (key, frame) not yet in a window
+        state = {"w": 0, "carried": None, "stitch": None, "held": [None] * il, "shape": None}
+
+        def dispatch(chunk: list, n_real: int, last: bool) -> _WindowFlight:
+            seq = state["w"]
+            state["w"] += 1
+            self._phase.enter("stage", seq)
+            xs = torch.from_numpy(np.stack([x for _, x in chunk]))
+            if self.device.type == "cuda":
+                xs = xs.pin_memory().to(self.device, non_blocking=True)
+            fh, fw = xs.shape[1:3]
+            new = vda.preprocess(xs, vda.net_hw((fh, fw), cfg.input_size, cfg.vit.patch_size))
+            carried = state["carried"]
+            window = new if carried is None else torch.cat([carried[keyframes], new])
+            first = 0 if carried is None else cfg.overlap
+            vda.COUNTERS["frames_new"] += len(chunk)
+            vda.COUNTERS["frames_carried"] += cfg.window - len(chunk)
+            self._phase.move("launch")
+            own = {first + i: (chunk[i][0], chunk[i][1], seq, first + i) for i in range(n_real)}
+            with torch.inference_mode():
+                raw = model.window_forward(window, self.precision, seq)
+                if self.stitch:
+                    full = vda.resize_ac(raw[..., None], (fh, fw))[..., 0]
+                    state["stitch"], done, pos = vda.stitch_window(state["stitch"], full, cfg,
+                                                                   last)
+                    held = iter(state["held"])
+                    metas = [next(held) if p < 0 else own.get(p) for p in pos]
+                    state["held"] = [own.get(p) for p in range(cfg.window - il, cfg.window)]
+                else:
+                    done = vda.resize_ac(raw[first:first + n_real, ..., None], (fh, fw))[..., 0]
+                    metas = [own[first + i] for i in range(n_real)]
+                rows = [i for i, m in enumerate(metas) if m is not None]
+                if len(rows) < done.shape[0]:
+                    done = done[rows]
+            state["carried"] = window
+            return _WindowFlight(seq, [metas[i] for i in rows], self._start_fetch((done,)))
+
+        def collect(flight: _WindowFlight) -> list:
+            self._phase.enter("collect", flight.seq)
+            host, done = flight.fetch
+            if done is not None:
+                done.synchronize()
+            inv = host[0].numpy()
+            out = [{"key": key, "inverse_depth": inv[i], "window": w, "position": p,
+                    "image": image} for i, (key, image, w, p) in enumerate(flight.meta)]
+            self._phase.enter("caller", flight.seq)  # until the yields of these are done
+            return out
+
+        def launch(chunk: list, n_real: int, last: bool):
+            in_flight.append(dispatch(chunk, n_real, last))
+            while len(in_flight) > self.pipeline_depth:
+                yield from collect(in_flight.popleft())
+
+        seen, last_item = 0, None
+        try:
+            while True:
+                self._phase.enter("wait_frames", state["w"])
+                got = q.get()
+                if got is sentinel:
+                    break
+                if isinstance(got, tuple) and len(got) == 2 and got[0] == _STREAM_ERROR:
+                    raise RuntimeError("frame source iterator failed") from got[1]
+                key, x, _ = got
+                if state["shape"] is None:
+                    state["shape"] = x.shape
+                elif x.shape != state["shape"]:
+                    raise ValueError(f"a window stream keeps one frame size: got {x.shape} "
+                                     f"after {state['shape']}")
+                seen += 1
+                last_item = (key, x)
+                pending.append(last_item)
+                need = cfg.window if state["w"] == 0 else cfg.step
+                if len(pending) == need:
+                    yield from launch(pending, need, False)
+                    pending = []
+            # upstream's windows start at every multiple of step inside the
+            # stream; the stitched stream needs each of them, the raw one only
+            # those with frames of their own
+            while seen and state["w"] * cfg.step < seen and (pending or self.stitch):
+                need = cfg.window if state["w"] == 0 else cfg.step
+                chunk, pending = pending[:need], pending[need:]
+                n_real = len(chunk)
+                chunk = chunk + [last_item] * (need - n_real)
+                yield from launch(chunk, n_real, (state["w"] + 1) * cfg.step >= seen)
             while in_flight:
                 yield from collect(in_flight.popleft())
         finally:

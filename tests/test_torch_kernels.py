@@ -284,6 +284,32 @@ def test_model_shapes_take_the_wgmma_body(cuda, batch, s, heads):
     assert A.attention_body(batch, s, heads, 64, torch.float32) == ("fp32", 64)
 
 
+# Video Depth Anything's K1 calls: the temporal modules along a 32-frame window at 8 heads
+# (path_3 at 74x132 positions and 256 channels, hd 32; layer_3 at 37x66 and 1024, hd 128),
+# and the ViT-L/14 at 2,443 tokens, 16 heads of 64, a window's 32 frames
+VDA_SHAPES = [((9768, 32, 3 * 256), 8, "mma.sync"), ((2442, 32, 3 * 1024), 8, "mma.sync"),
+              ((32, 2443, 3072), 16, "wgmma")]
+
+
+@pytest.mark.parametrize("shape,heads,body", VDA_SHAPES)
+def test_k1_at_video_depth_anything_shapes(cuda, shape, heads, body):
+    """K1 against the plain path in bf16 at the shapes Video Depth Anything
+    runs (the plain path taken a few rows of the batch at a time: the
+    encoder's scores alone would be 12 GB at once)."""
+    b, s, d3 = shape
+    hd = d3 // 3 // heads
+    assert A.attention_body(b, s, heads, hd, torch.bfloat16)[0] == body
+    qkv = torch.randn(shape, generator=cuda, device="cuda").to(torch.bfloat16)
+    before = A.K1.launches
+    got = A.attention_packed(qkv, heads)
+    torch.cuda.synchronize()
+    assert A.K1.launches == before + 1 and got.shape == (b, s, d3 // 3)
+    rows = max(1, (1 << 28) // (heads * s * s))
+    ref = torch.cat([A.attention_packed_reference(qkv[i:i + rows], heads)
+                     for i in range(0, b, rows)])
+    assert _rel(got, ref) <= 1e-2
+
+
 @pytest.mark.parametrize("shape,heads", [((70, 577, 3072), 16), ((24, 129, 3072), 16),
                                          ((1, 65, 384), 2), ((3, 1, 384), 2)])
 def test_wgmma_body_k4_equals_k1(cuda, shape, heads):
